@@ -9,10 +9,14 @@ no arguments.  Phases:
    source of the port (mimm_tpu_torch/csrc, one nvcc each, all started
    together) with ptxas's registers, shared memory and spills;
 2. each kernel against its plain PyTorch version on the card at the shapes
-   the serving path gives it, with a different number of padded keys in
-   each row;
-3. each kernel's time at the serving shape beside its plain version's, one
-   PyTorch library call's (a yardstick the port never calls) and its bound;
+   the serving and training paths give it, with a different number of
+   padded keys in each row: the flash forward at dropout rate 0 and 0.1,
+   the flash backward (dQ, dK, dV) at rate 0 and 0.1, the realized keep
+   rate of the Philox mask, and the CUDA Philox against Random123's
+   known-answer vectors;
+3. each kernel's time at (64, 12, 320, 64) beside its plain version's, one
+   PyTorch library call's (``scaled_dot_product_attention`` forward, or its
+   backward alone: a yardstick the port never calls) and its bound;
 4. the serving path through its entry point, the HTTP server of
    ``mimm_tpu_torch.cli.serve``, at full width: ResNet256_6_2_1, a 12-layer
    BERT-base TextBert with the flash gate open, and the Pneumonia
@@ -21,9 +25,18 @@ no arguments.  Phases:
    against a direct forward of the port's models with the plain attention
    path (``flash_attention=False``), and the flash kernel must launch once
    per encoder layer per text batch;
-5. where the device time of one image batch and one text batch goes
-   (torch.profiler);
-6. the ``kernels`` JSON line, the card line, and as the last line
+5. the MI pretraining train step at full width through ``create_mi_state``
+   / ``make_mi_train_step`` / ``make_mi_multi_step`` (ResNet256_6_2_1,
+   12-layer BERT-base, the 1536-1024-512-1 critic, B=64, production
+   preset, random weights from seed 0, the compact batch layout): one
+   warm-up and 3 timed steps per sequence bucket with ms/step, peak memory
+   and flash launches per step (12 forward + 12 backward at L >= 256, none
+   below), pairs/s over the bucket mix and at L=320; one float32 L=320
+   step at dropout 0 with the flash kernels against the plain attention
+   path; ``save_mi_checkpoints`` and a strict reload of its ``.bin`` files;
+6. where the device time of one image batch, one text batch and one train
+   step at L=64 and at L=320 goes (torch.profiler);
+7. the ``kernels`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a card it exits before
@@ -43,6 +56,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import ctypes
 
 import numpy as np
 import torch
@@ -53,14 +67,18 @@ sys.path.insert(0, REPO)
 
 from mimm_tpu_torch import checkpoint as ckpt  # noqa: E402
 from mimm_tpu_torch.cli.serve import build_server  # noqa: E402
-from mimm_tpu_torch.config import DEFAULT_CLASSIFIER_LAYERS  # noqa: E402
+from mimm_tpu_torch.config import (DEFAULT_CLASSIFIER_LAYERS,  # noqa: E402
+                                   PRODUCTION_SEQ_BUCKETS, TrainingConfig)
 from mimm_tpu_torch.models.bert import BertConfig, TextBert  # noqa: E402
+from mimm_tpu_torch.models.joint import ImageReportModel  # noqa: E402
 from mimm_tpu_torch.models.mlp import BasicMLP  # noqa: E402
 from mimm_tpu_torch.models.resnet import ResNet256_6_2_1  # noqa: E402
 from mimm_tpu_torch.ops import _build  # noqa: E402
 from mimm_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from mimm_tpu_torch.ops.image_norm import device_normalize  # noqa: E402
+from mimm_tpu_torch.ops.philox import attention_keep_mask  # noqa: E402
 from mimm_tpu_torch.serve import InferenceSession  # noqa: E402
+from mimm_tpu_torch.train import mi  # noqa: E402
 
 SEED = 0
 BATCH = 64                      # the serving default batch
@@ -85,8 +103,38 @@ RESPONSE_TOL = {"float32": 12 * 1e-4, "bfloat16": 5e-2}
 # tensor cores, bf16 on them)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
-FLASH_SOURCE = "mimm_tpu_torch/csrc/flash_attention_fwd.cu"
-FLASH_REPLACES = "mimm_tpu/ops/flash_attention.py:134"
+# backward kernel vs autograd through the plain version, max abs error over
+# max |reference| of each of dQ, dK, dV: in float32 the two differ in the
+# order of f32 sums; in bfloat16 the kernel rounds P∘M and dS to bf16
+# before its products (the TPU kernel's steps) where autograd rounds dP
+# instead, and each output keeps 8 bits
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+RATES = (0.0, 0.1)              # the serving path's and the training path's
+FLASH = {"fwd": ("mimm_tpu_torch/csrc/flash_attention_fwd.cu",
+                 "mimm_tpu/ops/flash_attention.py:134"),
+         "bwd": ("mimm_tpu_torch/csrc/flash_attention_bwd.cu",
+                 "mimm_tpu/ops/flash_attention.py:155")}
+# Random123 known-answer vectors of Philox4x32-10: (counter, key) -> words
+PHILOX_KAT = (((0, 0, 0, 0), (0, 0),
+               (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+              ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
+               (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)))
+# the JAX bench's report-length mix over PRODUCTION_SEQ_BUCKETS (bench.py
+# BUCKET_MIX, from the fixture corpus)
+BUCKET_MIX = {64: 0.327, 96: 0.391, 128: 0.182, 160: 0.064,
+              192: 0.018, 256: 0.009, 320: 0.009}
+TIMED_STEPS = 3
+# f32 L=320 train step, flash kernels against the plain attention path, at
+# dropout 0.  The DV loss is a difference of two terms of order 1, so its
+# f32 error is absolute: 1e-5 allows 12 layers of reordered f32 sums in the
+# text embeddings.  Per parameter group, the largest |Δ| and the share of
+# elements with |Δ| > 1e-6: a first Adam step moves a weight by
+# lr·m̂/(√v̂ + eps), ±lr unless |g| is near eps, so a gradient that is zero
+# up to f32 rounding may flip or scale its step: at most 2·lr apart, and
+# rare.
+STEP_LOSS_ATOL = 1e-5
+STEP_MAX_ABS = 2.5 * TrainingConfig().init_lr
+STEP_FLIP_SHARE = 1e-3
 
 
 def card_line() -> str:
@@ -128,29 +176,99 @@ def attention_inputs(shape, dtype, gen, device):
     return q, k, v, bias
 
 
+def _seed(value: int, device) -> torch.Tensor:
+    return torch.tensor([value], dtype=torch.int32, device=device)
+
+
+def _scaled_err(got, want) -> float:
+    """max |got − want| over max |want|."""
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
+def check_philox(device) -> None:
+    """Philox4x32-10 against Random123's known-answer vectors: through the
+    CUDA generator the kernels use (csrc/philox.cuh) on the card, through
+    ops/philox.py on the CPU."""
+    rows = np.array([list(c) + list(k) for c, k, _ in PHILOX_KAT], np.uint32)
+    want = np.array([w for _, _, w in PHILOX_KAT], np.uint32)
+    if torch.device(device).type == "cuda":
+        fn = _build.load(fa.SOURCE).mimm_philox4x32_10
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        src = torch.from_numpy(rows.view(np.int32)).to(device)
+        out = torch.empty(len(rows), 4, dtype=torch.int32, device=device)
+        err = fn(src.data_ptr(), out.data_ptr(), len(rows),
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"philox kernel launch failed: {err}")
+        got = out.cpu().numpy().view(np.uint32)
+    else:
+        from mimm_tpu_torch.ops.philox import philox4x32
+        got = np.array([[int(w) for w in philox4x32(c, k)]
+                        for c, k, _ in PHILOX_KAT], np.uint32)
+    print(f"  philox4x32-10 known-answer vectors: "
+          f"{[' '.join(f'{w:08x}' for w in r) for r in got]}")
+    if not np.array_equal(got, want):
+        raise AssertionError(f"Philox4x32-10 disagrees with Random123: {got}")
+
+
 def check_kernels(device, shapes=CHECK_SHAPES) -> dict:
-    """Max abs error of flash_attention against flash_attention_plain, per
-    dtype over all shapes; raises past KERNEL_TOL."""
+    """Each kernel against its plain version, per shape, dtype and dropout
+    rate; raises past its tolerance.  Returns the largest max abs error per
+    (kernel, dtype) and the realized keep rate of the mask at rate 0.1."""
     print(f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
           f"cudnn {torch.backends.cudnn.allow_tf32}")
+    check_philox(device)
     gen = torch.Generator(device=device).manual_seed(SEED)
-    worst = {dt: 0.0 for dt in DTYPES}
-    for shape in shapes:
+    worst = {(kind, dt): 0.0 for kind in FLASH for dt in DTYPES}
+    for n, shape in enumerate(shapes):
         for dt in DTYPES:
-            args = attention_inputs(shape, dt, gen, device)
-            got = fa.flash_attention(*args)
-            _sync(device)
-            want = fa.flash_attention_plain(*args)
-            _sync(device)
-            assert got.dtype == dt and got.shape == want.shape
-            err = (got.float() - want.float()).abs().max().item()
-            print(f"  flash_attention_fwd {shape} {dt}: max abs err "
-                  f"{err:.3e} (tol {KERNEL_TOL[dt]:.0e})")
-            if not err <= KERNEL_TOL[dt]:
-                raise AssertionError(f"kernel disagrees with its plain version "
-                                     f"at {shape} {dt}: {err}")
-            worst[dt] = max(worst[dt], err)
-    return worst
+            for rate in RATES:
+                args = attention_inputs(shape, dt, gen, device)
+                seed = _seed(1000 + n, device)
+                got = fa.flash_attention(*args, seed, rate)
+                _sync(device)
+                want = fa.flash_attention_plain(*args, seed, rate)
+                _sync(device)
+                assert got.dtype == dt and got.shape == want.shape
+                err = (got.float() - want.float()).abs().max().item()
+                print(f"  flash_attention_fwd {shape} {dt} rate {rate}: max "
+                      f"abs err {err:.3e} (tol {KERNEL_TOL[dt]:.0e})")
+                if not err <= KERNEL_TOL[dt]:
+                    raise AssertionError(f"forward kernel disagrees with its "
+                                         f"plain version at {shape} {dt} "
+                                         f"rate {rate}: {err}")
+                worst["fwd", dt] = max(worst["fwd", dt], err)
+                do = torch.randn(shape, generator=gen, device=device).to(dt)
+                got = fa.flash_attention_bwd(*args, seed, rate, do)
+                _sync(device)
+                want = fa.flash_attention_bwd_plain(*args, seed, rate, do)
+                _sync(device)
+                errs = [_scaled_err(g, w) for g, w in zip(got, want)]
+                abs_err = max((g.float() - w.float()).abs().max().item()
+                              for g, w in zip(got, want))
+                print(f"  flash_attention_bwd {shape} {dt} rate {rate}: "
+                      f"scaled max err dQ {errs[0]:.3e} dK {errs[1]:.3e} dV "
+                      f"{errs[2]:.3e} (tol {BWD_TOL[dt]:.0e})")
+                if not all(g.dtype == dt for g in got) \
+                        or not max(errs) <= BWD_TOL[dt]:
+                    raise AssertionError(f"backward kernel disagrees with "
+                                         f"autograd through the plain version"
+                                         f" at {shape} {dt} rate {rate}: "
+                                         f"{errs}")
+                worst["bwd", dt] = max(worst["bwd", dt], abs_err)
+    B, H, L, _ = shapes[0]
+    keep = attention_keep_mask(_seed(7, device), B, H, L, RATES[-1])
+    keep_rate = keep.float().mean().item()
+    sigma = (RATES[-1] * (1 - RATES[-1]) / keep.numel()) ** 0.5
+    print(f"  keep rate of the mask at rate {RATES[-1]} over {keep.numel()} "
+          f"draws: {keep_rate:.6f} (1 - rate within 5 sigma = {5 * sigma:.1e})")
+    if not abs(keep_rate - (1 - RATES[-1])) <= 5 * sigma:
+        raise AssertionError(f"keep rate {keep_rate}")
+    return {"worst": worst, "keep_rate": keep_rate}
 
 
 def _sync(device) -> None:
@@ -175,36 +293,61 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(shape, dtype):
-    """(ms, 'bytes' | 'operations'): q, k, v read and the output written
-    once plus the f32 bias, against the two products' 4·B·H·L²·D flops at
-    the dtype's peak (the softmax's O(B·H·L²) is left out)."""
+def attention_bound(shape, dtype, kind="fwd"):
+    """(ms, 'bytes' | 'operations').  Forward: q, k, v read and the output
+    written once plus the f32 bias, against the two products' 4·B·H·L²·D
+    flops.  Backward: q, k, v, dO read and dQ, dK, dV written once plus the
+    bias, against the five products' 10·B·H·L²·D flops.  At the dtype's
+    peak; the softmax's and the dropout's O(B·H·L²) are left out."""
     B, H, L, D = shape
     esize = torch.empty((), dtype=dtype).element_size()
-    t_bytes = (4 * B * H * L * D * esize + 4 * B * L) / HBM_BYTES_PER_S
-    t_ops = 4 * B * H * L * L * D / PEAK_FLOP_PER_S[dtype]
+    tensors, products = (4, 2) if kind == "fwd" else (7, 5)
+    t_bytes = (tensors * B * H * L * D * esize + 4 * B * L) / HBM_BYTES_PER_S
+    t_ops = 2 * products * B * H * L * L * D / PEAK_FLOP_PER_S[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
 def time_kernels() -> dict:
+    """{(kind, dtype): {rate: times}} at SERVE_SHAPE."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     card = card_line()
     out = {}
     for dt in DTYPES:
         q, k, v, bias = attention_inputs(SERVE_SHAPE, dt, gen, "cuda")
+        do = torch.randn(SERVE_SHAPE, generator=gen, device="cuda").to(dt)
         mask = bias[:, None, None, :].to(dt)
-        ms = time_ms(lambda: fa.flash_attention(q, k, v, bias), iters=100)
-        plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, bias))
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask), iters=100)
-        bound_ms, bound_by = attention_bound(SERVE_SHAPE, dt)
-        out[dt] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                       bound_ms=bound_ms, bound_by=bound_by)
-        print(f"  flash_attention_fwd {SERVE_SHAPE} {dt}: kernel {ms:.4f} ms,"
-              f" plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-              f"{bound_ms * 1e3:.1f} us ({bound_by}), kernel at "
-              f"{100 * bound_ms / ms:.1f}% of the bound  [{card}]")
+        seed = _seed(11, "cuda")
+        for rate in RATES:
+            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+            sdpa = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                  dropout_p=rate)
+            rows = {
+                "fwd": (lambda: fa.flash_attention(q, k, v, bias, seed, rate),
+                        lambda: fa.flash_attention_plain(q, k, v, bias, seed,
+                                                         rate),
+                        lambda: F.scaled_dot_product_attention(
+                            q, k, v, attn_mask=mask, dropout_p=rate)),
+                "bwd": (lambda: fa.flash_attention_bwd(q, k, v, bias, seed,
+                                                       rate, do),
+                        lambda: fa.flash_attention_bwd_plain(
+                            q, k, v, bias, seed, rate, do),
+                        lambda: torch.autograd.grad(sdpa, (qs, ks, vs), do,
+                                                    retain_graph=True))}
+            for kind, (kernel, plain, library) in rows.items():
+                ms = time_ms(kernel, iters=30)
+                plain_ms = time_ms(plain, iters=10)
+                library_ms = time_ms(library, iters=30)
+                bound_ms, bound_by = attention_bound(SERVE_SHAPE, dt, kind)
+                out.setdefault((kind, dt), {})[rate] = dict(
+                    ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                    bound_ms=bound_ms, bound_by=bound_by)
+                print(f"  flash_attention_{kind} {SERVE_SHAPE} {dt} rate "
+                      f"{rate}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                      f"sdpa {library_ms:.4f} ms, bound {bound_ms * 1e3:.1f} "
+                      f"us ({bound_by}), kernel at "
+                      f"{100 * bound_ms / ms:.1f}% of the bound  [{card}]")
+            del sdpa
     return out
 
 
@@ -485,13 +628,197 @@ def drive_serving(root: str, device, bert_kw=BERT_BASE, batch=BATCH,
             "config": BertConfig(**bert_kw), "data": data}
 
 
-# ---- phase 5: where a batch's device time goes ---------------------------------
+# ---- phase 5: the MI train step at full width ---------------------------------
+
+# what load_bert_config gives the production preset on BERT-base
+TRAIN_BERT = dict(BERT_BASE, gelu_tanh=True, u8_dropout=True)
+
+
+def compact_batch(rng, batch: int, seq: int, vocab: int, device) -> dict:
+    """The production loader's compact layout (the JAX bench's batch):
+    uint8 image crops, uint16 ids, uint8 masks and segments, int64 ids of
+    distinct studies."""
+    img = rng.integers(0, 255, (batch, 256, 256, 1)).astype(np.uint8)
+    ids = rng.integers(0, vocab, (batch, seq)).astype(np.uint16)
+    return {"image": torch.from_numpy(img).to(device),
+            "txt_ids": torch.from_numpy(ids).to(device),
+            "txt_masks": torch.ones(batch, seq, dtype=torch.uint8,
+                                    device=device),
+            "txt_segments": torch.zeros(batch, seq, dtype=torch.uint8,
+                                        device=device),
+            "study_id": torch.arange(batch, dtype=torch.int64, device=device)}
+
+
+def _snapshot(state) -> dict:
+    """Copies of the parameters, critic and BatchNorm statistics by group."""
+    p = state.params
+    groups = {"image": p["image_model"], "text": p["text_model"],
+              "critic": mi.critic_dict(state.critic_params),
+              "batch_stats": state.batch_stats}
+    return {g: {n: t.detach().float().cpu().clone() for n, t in d.items()}
+            for g, d in groups.items()}
+
+
+def compare_flash_step(device, bert_kw, batch: int, seq: int) -> dict:
+    """One float32 step at dropout 0 from one state, with the flash kernels
+    (flash_attention=True) and with the plain attention path; returns the
+    relative loss difference and per group (max |Δ|, share > 1e-6)."""
+    cfg = TrainingConfig.production(compute_dtype="float32")
+    data = compact_batch(np.random.default_rng(SEED + 2), batch, seq,
+                         bert_kw["vocab_size"], device)
+    runs = {}
+    for flash in (True, False):
+        bc = BertConfig(**dict(bert_kw, flash_attention=flash,
+                               hidden_dropout_prob=0.0,
+                               attention_probs_dropout_prob=0.0))
+        model = mi.build_joint_model(cfg, bc, device=device)
+        txs = mi.make_optimizers(cfg, steps_per_epoch=200_000 // batch)
+        state = mi.create_mi_state(model, cfg, txs,
+                                   torch.Generator().manual_seed(SEED + 3))
+        state, loss = mi.make_mi_train_step(model, txs, cfg)(state, data)
+        runs[flash] = (loss.item(), _snapshot(state))
+        del model, state
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    (l_k, a), (l_p, b) = runs[True], runs[False]
+    out = {"loss_diff": abs(l_k - l_p), "loss": (l_k, l_p)}
+    for g in a:
+        d = torch.cat([(a[g][n] - b[g][n]).abs().reshape(-1) for n in a[g]])
+        out[g] = (d.max().item(), (d > 1e-6).float().mean().item())
+    print(f"  f32 L={seq} step, flash kernels vs plain attention, dropout 0:"
+          f" loss {l_k:.9e} vs {l_p:.9e} (|diff| {out['loss_diff']:.2e}, tol "
+          f"{STEP_LOSS_ATOL:.0e}); max |dparam|, share > 1e-6: "
+          + ", ".join(f"{g} {out[g][0]:.2e}, {out[g][1]:.2e}" for g in a)
+          + f" (tol {STEP_MAX_ABS:.1e}, {STEP_FLIP_SHARE:.0e})")
+    if not out["loss_diff"] <= STEP_LOSS_ATOL or not all(
+            out[g][0] <= STEP_MAX_ABS and out[g][1] <= STEP_FLIP_SHARE
+            for g in a):
+        raise AssertionError(f"flash and plain train steps disagree: {out}")
+    return out
+
+
+def check_reload(save: str, state, bert_config) -> None:
+    """The three .bin files load into fresh port modules with strict=True
+    and hold the state's weights and statistics."""
+    want = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    image = ResNet256_6_2_1()
+    image.load_state_dict(ckpt.load_state_dict_bin(
+        os.path.join(save, "pytorch_MI_image_model.bin")), strict=True)
+    text = TextBert(BertConfig.from_json_file(os.path.join(save,
+                                                           "config.json")))
+    text.load_state_dict(ckpt.load_state_dict_bin(
+        os.path.join(save, "pytorch_MI_text_model.bin")), strict=True)
+    joint = ImageReportModel(bert_config)
+    joint.load_state_dict(ckpt.load_state_dict_bin(
+        os.path.join(save, "pytorch_model_epoch1.bin")), strict=True)
+    got = dict(joint.state_dict())
+    got.update({f"image_model.{k}": v for k, v in image.state_dict().items()})
+    got.update({f"text_model.{k}": v for k, v in text.state_dict().items()})
+    bad = [k for k in want if not torch.equal(got[k], want[k])]
+    print(f"  save_mi_checkpoints: 3 .bin files reloaded strict, "
+          f"{len(want)} tensors, {len(bad)} differ")
+    if bad:
+        raise AssertionError(f"reloaded checkpoint differs: {bad[:5]}")
+
+
+def drive_training(root: str, device, bert_kw=TRAIN_BERT, batch=BATCH,
+                   buckets=PRODUCTION_SEQ_BUCKETS, cmp_seq=SEQ) -> dict:
+    """Phase 5; returns the launches of the training path, the per-bucket
+    times, and what phase 6 profiles."""
+    cuda = torch.device(device).type == "cuda"
+    card = card_line() if cuda else "cpu"
+    cfg = TrainingConfig.production()
+    bc = BertConfig(**bert_kw)
+    model = mi.build_joint_model(cfg, bc, device=device)
+    txs = mi.make_optimizers(cfg, steps_per_epoch=200_000 // batch)
+    state = mi.create_mi_state(model, cfg, txs,
+                               torch.Generator().manual_seed(SEED))
+    train_step = mi.make_mi_train_step(model, txs, cfg)
+    multi_step = mi.make_mi_multi_step(model, txs, cfg)
+    rng = np.random.default_rng(SEED)
+    layers = bc.num_hidden_layers
+    flash_names = (fa.KERNELS[torch.bfloat16], fa.BWD_KERNELS[torch.bfloat16])
+    ms, losses, batches = {}, [], {}
+    fa.reset_launch_counts()            # the training path's run starts here
+    for seq in buckets:
+        data = batches[seq] = compact_batch(rng, batch, seq, bc.vocab_size,
+                                            device)
+        state, loss = train_step(state, data)           # warm-up
+        losses.append(loss[None])
+        stacked = {k: torch.stack([v] * TIMED_STEPS) for k, v in data.items()}
+        _sync(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        before = dict(fa.LAUNCHES)
+        t0 = time.perf_counter()
+        state, step_losses = multi_step(state, stacked)
+        _sync(device)
+        ms[seq] = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+        losses.append(step_losses)
+        per_step = [(fa.LAUNCHES[n] - before.get(n, 0)) / TIMED_STEPS
+                    for n in flash_names]
+        mem = f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB" \
+            if cuda else "not measured"
+        print(f"  L={seq}: {ms[seq]:.3f} ms/step ({batch / ms[seq] * 1e3:.1f}"
+              f" pairs/s, host clock, {TIMED_STEPS} steps after 1 warm-up), "
+              f"peak memory {mem}, flash launches per step fwd {per_step[0]:g}"
+              f" bwd {per_step[1]:g}, losses "
+              f"{[round(x, 6) for x in step_losses.tolist()]}  [{card}]")
+        want = layers if seq >= bc.flash_min_seq_len and seq % 8 == 0 else 0
+        if cuda and per_step != [want, want]:
+            raise AssertionError(f"L={seq}: flash launches per step "
+                                 f"{per_step}, want {want} fwd and bwd")
+    flat = torch.cat(losses).float().cpu()
+    if not torch.isfinite(flat).all() or len(set(flat.tolist())) != len(flat):
+        raise AssertionError(f"train losses not finite and distinct: "
+                             f"{flat.tolist()}")
+    # the bucket mix; even weights for a rehearsal's other buckets
+    mix = {b: BUCKET_MIX[b] if set(buckets) <= set(BUCKET_MIX) else 1.0
+           for b in buckets}
+    weighted_ms = sum(mix[b] * ms[b] for b in buckets) / sum(mix.values())
+    per_s = {"mix": batch / weighted_ms * 1e3,
+             "last": batch / ms[buckets[-1]] * 1e3}
+    print(f"  MI train step, B={batch}, production preset: "
+          f"{per_s['mix']:.1f} pairs/s over the bucket mix, "
+          f"{per_s['last']:.1f} pairs/s at L={buckets[-1]}  [{card}]")
+    step_cmp = compare_flash_step(device, bert_kw, batch, cmp_seq)
+    save = os.path.join(root, "mi_save")
+    mi.save_mi_checkpoints(save, state, 1, bc)
+    check_reload(save, state, bc)
+    launches = dict(fa.LAUNCHES)        # ... and ends here
+    print(f"training-path launches: {launches}")
+    return {"launches": launches, "ms": ms, "per_s": per_s, "cmp": step_cmp,
+            "state": state, "step": train_step, "batches": batches}
+
+
+# ---- phase 6: where the device time goes ---------------------------------------
+
+def profile_call(title: str, call, wall_ms: float, card: str) -> None:
+    """Kernel time by name over one call of ``call`` under torch.profiler,
+    and the device idle share against ``wall_ms``."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        call()
+        torch.cuda.synchronize()
+    # kernel rows only: an operator's row repeats its kernels' time
+    rows = [(e.self_device_time_total / 1e3, e.key, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy = sum(r[0] for r in rows)
+    print(f"profile {title}: {wall_ms:.3f} ms (host clock, profiler off), "
+          f"device busy {busy:.3f} ms (profiler on)"
+          + (f", idle share {1 - busy / wall_ms:.3f}" if busy else
+             ", device time not measured") + f"  [{card}]")
+    for ms, key, count in sorted(rows, reverse=True)[:8]:
+        print(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{count:<4d}"
+              f" {key[:90]}")
+
 
 def profile_batches(save: str, config, data) -> None:
     images, ids, masks = data
     card = card_line()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     for cd in ("float32", "bfloat16"):
         sess = InferenceSession(save, batch_size=BATCH, bert_config=config,
                                 compute_dtype=cd, max_seq_length=SEQ,
@@ -505,24 +832,17 @@ def profile_batches(save: str, config, data) -> None:
                 t0 = time.perf_counter()
                 call()              # ends in a device-to-host copy
                 walls.append(time.perf_counter() - t0)
-            wall = statistics.median(walls[1:]) * 1e3
-            with torch.profiler.profile(activities=acts) as prof:
-                call()
-                torch.cuda.synchronize()
-            # kernel rows only: an operator's row repeats its kernels' time
-            rows = [(e.self_device_time_total / 1e3, e.key, e.count)
-                    for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and e.self_device_time_total > 0]
-            busy = sum(r[0] for r in rows)
-            print(f"profile {cd} {name} (B={BATCH}): session call {wall:.3f}"
-                  f" ms (host clock, profiler off, median of 5), device busy "
-                  f"{busy:.3f} ms (profiler on)"
-                  + (f", idle share {1 - busy / wall:.3f}" if busy else
-                     ", device time not measured") + f"  [{card}]")
-            for ms, key, count in sorted(rows, reverse=True)[:8]:
-                print(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{count:<4d}"
-                      f" {key[:90]}")
+            profile_call(f"{cd} {name} (B={BATCH}), session call median of 5",
+                         call, statistics.median(walls[1:]) * 1e3, card)
+
+
+def profile_train_steps(train: dict) -> None:
+    """One train step at the shortest and at the longest bucket."""
+    for seq in (min(train["ms"]), max(train["ms"])):
+        profile_call(f"MI train step bf16 L={seq} (B={BATCH}), ms/step of "
+                     f"phase 5", lambda: train["step"](train["state"],
+                                                       train["batches"][seq]),
+                     train["ms"][seq], card_line())
 
 
 # ---- main ----------------------------------------------------------------------
@@ -538,24 +858,40 @@ def main() -> int:
     print("== phase 1: versions and build")
     versions_and_build()
     print("== phase 2: kernels against their plain versions")
-    errs = check_kernels("cuda")
-    print("== phase 3: timing at the serving shape")
+    checked = check_kernels("cuda")
+    print("== phase 3: timing at (64, 12, 320, 64)")
     times = time_kernels()
-    print("== phase 4: the serving path over HTTP (full width)")
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
-        run = drive_serving(root, "cuda")
-        print("== phase 5: where a batch's device time goes")
-        profile_batches(run["save"], run["config"], run["data"])
+        print("== phase 4: the serving path over HTTP (full width)")
+        serve = drive_serving(root, "cuda")
+        print("== phase 5: the MI train step (full width, B=64)")
+        train = drive_training(root, "cuda")
+        print("== phase 6: where the device time goes")
+        profile_batches(serve["save"], serve["config"], serve["data"])
+        profile_train_steps(train)
+    del train["state"], train["batches"]
 
+    # each path's launches, counted from 0 just before it and read just
+    # after; both paths run the forward kernels, training the backward too
+    paths = {"serving": (serve["launches"], fa.KERNELS.values()),
+             "training": (train["launches"],
+                          [*fa.KERNELS.values(), *fa.BWD_KERNELS.values()])}
+    for path, (counts, names) in paths.items():
+        for name in names:
+            if counts.get(name, 0) == 0:
+                raise AssertionError(f"{name} was not launched on the {path} "
+                                     f"path")
     kernels = []
-    for dt in DTYPES:
-        name = fa.KERNELS[dt]
-        launches = run["launches"].get(name, 0)
-        if launches == 0:
-            raise AssertionError(f"{name} was not launched on the main path")
-        kernels.append({"name": name, "route": "cuda", "source": FLASH_SOURCE,
-                        "replaces": FLASH_REPLACES, "launches": launches,
-                        "max_abs_err": errs[dt], **times[dt]})
+    for kind, names in (("fwd", fa.KERNELS), ("bwd", fa.BWD_KERNELS)):
+        for dt in DTYPES:
+            name = names[dt]
+            kernels.append({
+                "name": name, "route": "cuda", "source": FLASH[kind][0],
+                "replaces": FLASH[kind][1],
+                "launches": sum(c.get(name, 0) for c, _ in paths.values()),
+                "max_abs_err": checked["worst"][kind, dt],
+                **times[kind, dt][RATES[-1]],
+                "ms_rate0": times[kind, dt][0.0]["ms"]})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

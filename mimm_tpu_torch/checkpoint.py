@@ -9,7 +9,8 @@ The ``*_state_dict_from_flax`` functions take a JAX parameter tree as numpy
 arrays (nested dicts, flax naming) and return the reference-keyed torch
 state dict — the same layout mimm_tpu/checkpoint.py writes with its
 ``*_state_dict_from_variables`` exporters, re-implemented here so the port
-imports nothing of the JAX package.
+imports nothing of the JAX package.  ``mi_weights_from_flax`` bridges a
+JAX MI train state the same way.
 """
 
 from __future__ import annotations
@@ -38,6 +39,14 @@ def save_state_dict_bin(path: str, sd) -> str:
                     else torch.from_numpy(np.array(v, copy=True)))
                 for k, v in sd.items()}, path)
     return path
+
+
+def save_joint_state_dict_bin(path: str, image_sd, text_sd) -> str:
+    """The reference's joint ``pytorch_model_epoch<N>.bin``: the image and
+    text state dicts under ``image_model.`` / ``text_model.`` prefixes."""
+    joint = {f"image_model.{k}": v for k, v in image_sd.items()}
+    joint.update({f"text_model.{k}": v for k, v in text_sd.items()})
+    return save_state_dict_bin(path, joint)
 
 
 def normalize_bert_keys(sd: StateDict) -> StateDict:
@@ -177,3 +186,23 @@ def mlp_state_dict_from_flax(params: List[dict], sequential: bool = False
         sd[f"{key}.weight"] = _t(layer["w"])
         sd[f"{key}.bias"] = _tensor(layer["b"])
     return sd
+
+
+# ---- the MI train state ----------------------------------------------------
+
+def mi_weights_from_flax(params: dict, batch_stats: dict,
+                         critic_params: List[dict], num_layers: int) -> dict:
+    """JAX ``MITrainState`` parts as numpy trees -> the port's weights:
+    ``{'image_model': sd, 'text_model': sd, 'critic': [{'w', 'b'}]}``, the
+    argument ``train/mi.py create_mi_state(weights=...)`` loads.  The
+    critic needs no re-wiring: the port's image embedding is flattened in
+    JAX's NHWC order."""
+    return {
+        "image_model": resnet_state_dict_from_flax(
+            {"params": params["image_model"],
+             "batch_stats": batch_stats["image_model"]}),
+        "text_model": bert_state_dict_from_flax(
+            {"params": params["text_model"]}, num_layers),
+        "critic": [{k: _tensor(layer[k]) for k in ("w", "b")}
+                   for layer in critic_params],
+    }

@@ -1,5 +1,5 @@
 """TextBert — BERT text encoder with a pooled-[CLS] head
-(mimm_tpu/models/bert.py counterpart, eval forward).
+(mimm_tpu/models/bert.py counterpart, eval and train forward).
 
 A pytorch_transformers-1.0.0-style BertModel (post-LayerNorm encoder, GELU,
 learned position + token-type embeddings, tanh pooler over [CLS]) and a
@@ -12,6 +12,12 @@ Attention takes the hand-written flash kernel (ops/flash_attention.py) under
 the dispatch gate of the JAX package (``flash_attention`` and
 ``L >= flash_min_seq_len`` and ``L % 8 == 0`` and ``head_dim % 8 == 0``);
 below it, the plain path is the counterpart of JAX's einsum path.
+
+``deterministic=False`` (JAX's flag) trains: dropout after the embedding
+LayerNorm, on the attention probabilities (inside the flash kernels, or
+on the plain path), after the attention output and FFN projections, and
+on the pooled output before the classifier, every mask drawn from the
+``torch.Generator`` the caller passes.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mimm_tpu_torch.ops.dropout import dropout_fn
 from mimm_tpu_torch.ops.flash_attention import flash_attention
 
 
@@ -32,10 +39,11 @@ from mimm_tpu_torch.ops.flash_attention import flash_attention
 class BertConfig:
     """pytorch_transformers BertConfig fields + the JAX package's knobs.
 
-    Training-only knobs (``remat``, ``packed_dropout``, ``u8_dropout``) are
-    accepted and inert in the eval forward.  ``whole_sample`` selection
-    (``flash_whole_sample_max_len``) picked a TPU grid; both grids are one
-    function here."""
+    ``packed_dropout`` / ``u8_dropout`` pick the training dropout
+    (ops/dropout.py); ``remat`` raises in a training forward: it comes with
+    the GradCache slice, whose recompute needs masks derived from per-layer
+    seeds.  ``whole_sample`` selection (``flash_whole_sample_max_len``)
+    picked a TPU grid; both grids are one function here."""
 
     vocab_size: int = 30522
     hidden_size: int = 768
@@ -117,7 +125,8 @@ class BertSelfAttention(nn.Module):
         self.key = nn.Linear(h, h)
         self.value = nn.Linear(h, h)
 
-    def forward(self, hidden, attn_bias):
+    def forward(self, hidden, attn_bias, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         cfg = self.config
         h, nh = cfg.hidden_size, cfg.num_attention_heads
         hd = h // nh
@@ -138,9 +147,14 @@ class BertSelfAttention(nn.Module):
 
         if cfg.flash_attention and seq_len >= cfg.flash_min_seq_len \
                 and seq_len % 8 == 0 and hd % 8 == 0:
+            rate = 0.0 if deterministic else cfg.attention_probs_dropout_prob
+            seed = None
+            if rate > 0.0:  # one int32 seed per layer from the step's stream
+                seed = torch.randint(0, 2 ** 31 - 1, (1,), dtype=torch.int32,
+                                     device=hidden.device, generator=generator)
             bias_row = attn_bias[:, 0, 0, :].float().contiguous()   # (B, L)
             ctx = flash_attention(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), bias_row)
+                                  v.contiguous(), bias_row, seed, rate)
             return ctx.transpose(1, 2).reshape(b, seq_len, h)
 
         scores = torch.matmul(q, k.transpose(-1, -2)) \
@@ -151,7 +165,9 @@ class BertSelfAttention(nn.Module):
             probs = torch.softmax(scores.to(sdt), dim=-1).to(dt)
         else:
             probs = torch.softmax(
-                scores - scores.amax(dim=-1, keepdim=True), dim=-1)
+                scores - scores.amax(dim=-1, keepdim=True).detach(), dim=-1)
+        probs = dropout_fn(cfg)(probs, cfg.attention_probs_dropout_prob,
+                                generator, deterministic)
         ctx = torch.matmul(probs, v)
         return ctx.transpose(1, 2).reshape(b, seq_len, h)
 
@@ -174,14 +190,19 @@ class BertLayer(nn.Module):
         self.output = _Holder(dense=nn.Linear(config.intermediate_size, h),
                               LayerNorm=nn.LayerNorm(h, eps=eps))
 
-    def forward(self, hidden, attn_bias):
+    def forward(self, hidden, attn_bias, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        cfg = self.config
+        drop = dropout_fn(cfg)
         att = self.attention
-        a = _linear(att.output.dense, att.self(hidden, attn_bias))
+        a = _linear(att.output.dense,
+                    att.self(hidden, attn_bias, deterministic, generator))
+        a = drop(a, cfg.hidden_dropout_prob, generator, deterministic)
         hidden = _layer_norm(att.output.LayerNorm, hidden + a)
         inter = _linear(self.intermediate.dense, hidden)
-        inter = F.gelu(inter, approximate="tanh" if self.config.gelu_tanh
-                       else "none")
+        inter = F.gelu(inter, approximate="tanh" if cfg.gelu_tanh else "none")
         out = _linear(self.output.dense, inter)
+        out = drop(out, cfg.hidden_dropout_prob, generator, deterministic)
         return _layer_norm(self.output.LayerNorm, hidden + out)
 
 
@@ -203,7 +224,12 @@ class BertModel(nn.Module):
             BertLayer(config) for _ in range(config.num_hidden_layers)))
         self.pooler = _Holder(dense=nn.Linear(h, h))
 
-    def forward(self, input_ids, token_type_ids=None, attention_mask=None):
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None, *,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        cfg = self.config
+        if not deterministic:
+            _check_training(cfg, generator)
         dt = self.dtype
         emb = self.embeddings
         if token_type_ids is None:
@@ -216,18 +242,32 @@ class BertModel(nn.Module):
                   + F.embedding(token_type_ids,
                                 emb.token_type_embeddings.weight.to(dt)))
         hidden = _layer_norm(emb.LayerNorm, hidden)
+        hidden = dropout_fn(cfg)(hidden, cfg.hidden_dropout_prob, generator,
+                                 deterministic)
         # (B, 1, 1, L) additive mask, -10000 on padding, formed in the
         # compute dtype (-9984 in bfloat16) as pytorch_transformers does
         attn_bias = (1.0 - attention_mask[:, None, None, :].to(dt)) * -10000.0
         for layer in self.encoder.layer:
-            hidden = layer(hidden, attn_bias)
+            hidden = layer(hidden, attn_bias, deterministic, generator)
         pooled = torch.tanh(_linear(self.pooler.dense, hidden[:, 0]))
         return hidden, pooled
 
 
+def _check_training(config: BertConfig, generator) -> None:
+    if config.remat:
+        raise NotImplementedError(
+            "BertConfig.remat in training comes with the GradCache slice "
+            "(ROADMAP.md queue A): a recompute must draw the forward's "
+            "dropout masks, which needs masks derived from per-layer seeds")
+    rates = (config.hidden_dropout_prob, config.attention_probs_dropout_prob)
+    if generator is None and any(r > 0.0 for r in rates):
+        raise ValueError("a training forward with dropout needs an explicit "
+                         "torch.Generator on the input's device")
+
+
 class TextBert(nn.Module):
-    """BertModel -> classifier head; returns (pooled, logits) with pooled
-    promoted to at least float32 (reference model.py:54-89)."""
+    """BertModel -> dropout -> classifier head; returns (pooled, logits)
+    with pooled promoted to at least float32 (reference model.py:54-89)."""
 
     def __init__(self, config: BertConfig,
                  dtype: torch.dtype = torch.float32):
@@ -237,8 +277,13 @@ class TextBert(nn.Module):
         self.classifier = nn.Linear(config.hidden_size, config.num_classes)
 
     def forward(self, input_ids, token_type_ids=None,
-                attention_mask: Optional[torch.Tensor] = None):
-        _, pooled = self.bert(input_ids, token_type_ids, attention_mask)
+                attention_mask: Optional[torch.Tensor] = None, *,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        _, pooled = self.bert(input_ids, token_type_ids, attention_mask,
+                              deterministic=deterministic, generator=generator)
         pooled = pooled.to(torch.promote_types(pooled.dtype, torch.float32))
-        return pooled, _linear(self.classifier, pooled)
+        dropped = dropout_fn(self.config)(
+            pooled, self.config.hidden_dropout_prob, generator, deterministic)
+        return pooled, _linear(self.classifier, dropped)
 

@@ -6,7 +6,8 @@ Module names give the reference state-dict keys (``layer1.0.conv1.weight``,
 ``layer1.0.downsample.1.running_mean``, ``fc1.weight``, ...), so reference
 ``.bin`` files load with ``strict=True``.  Only the canonical stem is
 ported; the JAX package's ``s2d_stem`` and ``pallas_stem`` are TPU
-schedules of the same function.
+schedules of the same function, and sync-BN (``bn_axis_name``) comes with
+the parallel slice.  BatchNorm follows flax in eval and train mode.
 
 The public input is NHWC ``(B, 256, 256, 1)`` as in JAX; the tower runs
 NCHW inside.  Parameters stay float32 and are cast to the compute dtype at
@@ -22,19 +23,37 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def _norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    """Eval BatchNorm with the running statistics combined in float32 and
-    the normalization arithmetic in the compute dtype (flax nn.BatchNorm
-    with ``dtype``)."""
-    if bn.training:
-        raise NotImplementedError(
-            "BatchNorm in train mode comes with the MI training slice "
-            "(ROADMAP.md queue A, 'MI train step'); call .eval()")
-    dt = x.dtype
-    mul = torch.rsqrt(bn.running_var.float() + bn.eps) * bn.weight.float()
+# flax nn.BatchNorm(momentum=0.9): running = 0.9 · running + (1 − 0.9) · batch
+_MOMENTUM = 0.9
+
+
+def _norm(bn: nn.BatchNorm2d, x: torch.Tensor, train: bool) -> torch.Tensor:
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=...)`` on an
+    NCHW map.  The arithmetic runs in at least float32 and the result is
+    cast to the compute dtype, as flax's ``_normalize`` does (its float32
+    mean and variance promote the input).
+
+    ``train``: normalize with the batch statistics, taken in float32 as
+    E[x²] − E[x]² clamped at 0, and update the running statistics in place
+    with flax's rule, whose running variance is the BIASED batch variance
+    (``F.batch_norm(training=True)`` would store the unbiased one)."""
+    dt = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(dt)
+    if train:
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                          min=0.0)
+        with torch.no_grad():
+            bn.running_mean.copy_(_MOMENTUM * bn.running_mean
+                                  + (1 - _MOMENTUM) * mean)
+            bn.running_var.copy_(_MOMENTUM * bn.running_var
+                                 + (1 - _MOMENTUM) * var)
+    else:
+        mean, var = bn.running_mean.to(dt), bn.running_var.to(dt)
     shape = (1, -1, 1, 1)
-    return (x - bn.running_mean.to(dt).view(shape)) * mul.to(dt).view(shape) \
-        + bn.bias.to(dt).view(shape)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight.to(dt)
+    y = (xf - mean.view(shape)) * mul.view(shape) + bn.bias.to(dt).view(shape)
+    return y.to(x.dtype)
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -57,11 +76,11 @@ class BasicBlock(nn.Module):
             nn.BatchNorm2d(planes, eps=1e-5, momentum=0.1)) \
             if use_projection else None
 
-    def forward(self, x):
-        out = F.relu(_norm(self.bn1, _conv(self.conv1, x)))
-        out = _norm(self.bn2, _conv(self.conv2, out))
+    def forward(self, x, train: bool = False):
+        out = F.relu(_norm(self.bn1, _conv(self.conv1, x), train))
+        out = _norm(self.bn2, _conv(self.conv2, out), train)
         identity = x if self.downsample is None else \
-            _norm(self.downsample[1], _conv(self.downsample[0], x))
+            _norm(self.downsample[1], _conv(self.downsample[0], x), train)
         return F.relu(out + identity)
 
 
@@ -88,15 +107,19 @@ class ResNet256_6_2_1(nn.Module):
         self.num_layers = len(planes)
         self.fc1 = nn.Linear(planes[-1] * 4, output_channels)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    def forward(self, x: torch.Tensor,
+                train: bool = False) -> Tuple[torch.Tensor, ...]:
         """x: (B, H, W, 1) NHWC.  Returns (y, z, y_sigmoid, z_local,
         y_logits): ``z`` is the pooled map flattened in NHWC order (the JAX
-        embedding, elementwise), ``z_local`` the layer-5 map in NHWC."""
+        embedding, elementwise), ``z_local`` the layer-5 map in NHWC.
+        ``train``: BatchNorm on batch statistics, running statistics
+        updated in place (JAX's ``train=True`` with mutable batch_stats)."""
         x = x.to(self.dtype).permute(0, 3, 1, 2)
-        x = F.relu(_norm(self.bn1, _conv(self.conv1, x)))
+        x = F.relu(_norm(self.bn1, _conv(self.conv1, x), train))
         z_local = None
         for li in range(self.num_layers):
-            x = getattr(self, f"layer{li + 1}")(x)
+            for block in getattr(self, f"layer{li + 1}"):
+                x = block(x, train)
             if li == 4:  # layer5 feature map == reference z_local
                 z_local = x.permute(0, 2, 3, 1)
         x = F.avg_pool2d(x, 2, 2)

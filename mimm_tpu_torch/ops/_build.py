@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` interface and is
 compiled at first use into ``build/mimm_tpu_torch/lib<name>-<hash>.so``
-under the repository root.  The hash covers the source and the nvcc flags,
-so an edited source rebuilds; concurrent builds of one library
-serialize on ``build/mimm_tpu_torch/<name>.lock``, and ``build_all`` starts
+under the repository root.  The hash covers the source, the ``csrc/*.cuh``
+headers and the nvcc flags, so an edited source or header rebuilds;
+concurrent builds of one library serialize on ``build/mimm_tpu_torch/<name>.lock``, and ``build_all`` starts
 one nvcc for every source at once.  No PyTorch header is included: the library
 takes raw device pointers and a ``cudaStream_t`` (all ``c_void_p``), which
 keeps a build at seconds instead of minutes.
@@ -42,9 +42,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The hash covers the source, every ``csrc/*.cuh`` it may include,
+    and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

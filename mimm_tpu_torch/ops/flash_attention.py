@@ -1,15 +1,18 @@
-"""Fused attention forward: ctx = softmax(Q Kᵀ/√D + key_bias) · V.
+"""Fused attention: ctx = dropout(softmax(Q Kᵀ/√D + key_bias)) · V, with
+its gradient.
 
-Counterpart of mimm_tpu/ops/flash_attention.py ``flash_attention`` at
-dropout rate 0 (inference).  For CUDA tensors the wrapper launches the
-hand-written Hopper kernel ``csrc/flash_attention_fwd.cu``; for CPU tensors
-it runs ``flash_attention_plain``, the same function in plain PyTorch with
-the same dtype steps.  There is no fallback from CUDA to the plain version:
-a CUDA call launches the kernel or raises.
+Counterpart of mimm_tpu/ops/flash_attention.py ``flash_attention`` (the
+``custom_vjp`` at :202).  ``flash_attention`` is a ``torch.autograd.Function``
+that saves q, k, v, bias and the seed, as the JAX residuals do.  For CUDA
+tensors the forward launches ``csrc/flash_attention_fwd.cu`` and the
+backward ``csrc/flash_attention_bwd.cu``; for CPU tensors the forward is
+``flash_attention_plain``, the same function in plain PyTorch with the same
+dtype steps, and the backward is autograd through it.  There is no fallback
+from CUDA to the plain version: a CUDA call launches the kernel or raises.
 
-Dropout on the probabilities (Philox, keyed on the seed) and the backward
-kernel belong to the MI training slice (ROADMAP.md queue A, "MI train
-step"); until then ``rate > 0`` and inputs that require grad on CUDA raise.
+Dropout on the probabilities (``rate > 0``) keeps element (b, h, i, j) by a
+Philox4x32-10 draw keyed on the seed (ops/philox.py), the same bits in both
+kernels and the plain version.  They are not the TPU's on-core PRNG bits.
 """
 
 from __future__ import annotations
@@ -19,38 +22,54 @@ import ctypes
 
 import torch
 
+from mimm_tpu_torch.ops.philox import attention_keep_mask, keep_threshold
+
 # launches of each kernel since the last reset_launch_counts(); a wrapper
 # adds one exactly where it launches its kernel
 LAUNCHES: collections.Counter = collections.Counter()
-SOURCE = "flash_attention_fwd"   # csrc/flash_attention_fwd.cu
-# one template instantiation of the source per input dtype
+SOURCE = "flash_attention_fwd"        # csrc/flash_attention_fwd.cu
+BWD_SOURCE = "flash_attention_bwd"    # csrc/flash_attention_bwd.cu
+# one template instantiation of each source per input dtype
 KERNELS = {torch.float32: "flash_attention_fwd_f32",
            torch.bfloat16: "flash_attention_fwd_bf16"}
+BWD_KERNELS = {torch.float32: "flash_attention_bwd_f32",
+               torch.bfloat16: "flash_attention_bwd_bf16"}
 MAX_SEQ_LEN = 512
 HEAD_DIM = 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_TRAINING = ("dropout and the backward kernel come with the MI training "
-             "slice (ROADMAP.md queue A, 'MI train step')")
 
 
 def reset_launch_counts() -> None:
     LAUNCHES.clear()
 
 
-def flash_attention_plain(q, k, v, bias):
+def keep_scale(rate: float) -> float:
+    """1/(1 - rate) rounded to float32, the factor of a kept probability."""
+    return torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32).item()
+
+
+def flash_attention_plain(q, k, v, bias, seed=None, rate: float = 0.0):
     """The kernel's function in plain PyTorch, with its dtype steps: f32
-    scores, f32 whole-row softmax, probabilities cast to the input dtype
-    before an f32-accumulated P·V, output in the input dtype."""
+    scores, f32 whole-row softmax, at ``rate > 0`` the Philox mask times
+    1/(1 - rate) in f32, probabilities cast to the input dtype before an
+    f32-accumulated P·V, output in the input dtype.  float64 inputs keep
+    float64 throughout (gradient checks)."""
+    dt = torch.promote_types(q.dtype, torch.float32)
     scale = 1.0 / (q.shape[-1] ** 0.5)
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    s = s * scale + bias.float()[:, None, None, :]
+    s = torch.matmul(q.to(dt), k.to(dt).transpose(-1, -2))
+    s = s * scale + bias.to(dt)[:, None, None, :]
     s = s - s.amax(dim=-1, keepdim=True)
     e = torch.exp(s)
-    p = (e / e.sum(dim=-1, keepdim=True)).to(v.dtype)
-    return torch.matmul(p.float(), v.float()).to(q.dtype)
+    p = e / e.sum(dim=-1, keepdim=True)
+    if rate > 0.0:
+        B, H, L, _ = q.shape
+        keep = attention_keep_mask(seed, B, H, L, rate)
+        p = p * torch.where(keep, keep_scale(rate), 0.0).to(dt)
+    p = p.to(v.dtype)
+    return torch.matmul(p.to(dt), v.to(dt)).to(q.dtype)
 
 
-def _check(q, k, v, bias):
+def _check(q, k, v, bias, seed, rate):
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must share a (B, H, L, D) shape; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -58,57 +77,136 @@ def _check(q, k, v, bias):
     if tuple(bias.shape) != (B, L):
         raise ValueError(f"bias must be (B, L) = {(B, L)}, got "
                          f"{tuple(bias.shape)}")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
+    dtypes = set(_DTYPE_CODES) | ({torch.float64} if q.device.type == "cpu"
+                                  else set())
+    if q.dtype not in dtypes or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must all be float32 or bfloat16; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if bias.dtype != torch.float32:
         raise TypeError(f"bias must be float32, got {bias.dtype}")
-    devices = {t.device for t in (q, k, v, bias)}
-    if len(devices) != 1:
-        raise ValueError(f"q, k, v, bias on different devices: {devices}")
-
-
-def flash_attention(q, k, v, bias, seed=None, rate: float = 0.0,
-                    whole_sample: bool = False):
-    """q, k, v: (B, H, L, D); bias: (B, L) float32 additive key bias.
-    Returns the context (B, H, L, D) in q's dtype.
-
-    ``seed`` and ``rate`` mirror the JAX signature (dropout on the probs);
-    only ``rate == 0`` is supported.  ``whole_sample`` selected a TPU grid;
-    both grids are one function and take the same kernel here."""
-    del seed, whole_sample
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+    tensors = [q, k, v, bias]
     if rate > 0.0:
-        raise NotImplementedError(f"flash_attention rate={rate}: {_TRAINING}")
-    _check(q, k, v, bias)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, bias)
-    if q.device.type != "cuda":
+        if seed is None or seed.numel() != 1 or seed.dtype != torch.int32:
+            raise ValueError("rate > 0 needs the seed as an int32 tensor of "
+                             "one element")
+        tensors.append(seed)
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"q, k, v, bias, seed on different devices: {devices}")
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v, bias)):
-        raise NotImplementedError(f"flash_attention backward: {_TRAINING}")
-    B, H, L, D = q.shape
+
+
+def _kernel_args(tensors, rate):
+    """Shape checks of the CUDA kernels; returns (B, H, L, D) and the
+    dropout arguments (flag, threshold, keep scale)."""
+    B, H, L, D = tensors[0].shape
     if D != HEAD_DIM or not 1 <= L <= MAX_SEQ_LEN:
         raise ValueError(f"the kernel takes D={HEAD_DIM} and "
                          f"1 <= L <= {MAX_SEQ_LEN}; got D={D}, L={L}")
-    if not all(t.is_contiguous() for t in (q, k, v, bias)):
-        raise ValueError("q, k, v and bias must be contiguous")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("q, k, v, bias (and dO) must be contiguous")
+    drop = (1, keep_threshold(rate), keep_scale(rate)) if rate > 0.0 \
+        else (0, 0, 1.0)
+    return (B, H, L, D), drop
+
+
+def _forward_kernel(q, k, v, bias, seed, rate):
     from mimm_tpu_torch.ops import _build
 
-    lib = _build.load(SOURCE)
-    fn = lib.mimm_flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    (B, H, L, D), drop = _kernel_args((q, k, v, bias), rate)
+    fn = _build.load(SOURCE).mimm_flash_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_uint, ctypes.c_float,
+        ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                 out.data_ptr(), B, H, L, D, 1.0 / (D ** 0.5),
-                 _DTYPE_CODES[q.dtype], stream)
+                 seed.data_ptr() if drop[0] else None, out.data_ptr(),
+                 B, H, L, D, 1.0 / (D ** 0.5), *drop, _DTYPE_CODES[q.dtype],
+                 stream)
     if err != 0:
-        raise RuntimeError(f"{KERNELS[q.dtype]} launch failed: cudaError_t {err} "
-                           f"at (B,H,L,D)={(B, H, L, D)}, {q.dtype}")
+        raise RuntimeError(f"{KERNELS[q.dtype]} launch failed: cudaError_t "
+                           f"{err} at (B,H,L,D)={(B, H, L, D)}, {q.dtype}")
     LAUNCHES[KERNELS[q.dtype]] += 1
     return out
+
+
+def _backward_kernel(q, k, v, bias, seed, rate, do):
+    from mimm_tpu_torch.ops import _build
+
+    (B, H, L, D), drop = _kernel_args((q, k, v, bias, do), rate)
+    if do.dtype != q.dtype:
+        raise TypeError(f"dO must be {q.dtype}, got {do.dtype}")
+    fn = _build.load(BWD_SOURCE).mimm_flash_attention_bwd
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_uint, ctypes.c_float,
+        ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    stats = torch.empty(3 * B * H * L, device=q.device, dtype=torch.float32)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                 seed.data_ptr() if drop[0] else None, do.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 stats.data_ptr(), B, H, L, D, 1.0 / (D ** 0.5), *drop,
+                 _DTYPE_CODES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"{BWD_KERNELS[q.dtype]} launch failed: "
+                           f"cudaError_t {err} at (B,H,L,D)={(B, H, L, D)}, "
+                           f"{q.dtype}")
+    LAUNCHES[BWD_KERNELS[q.dtype]] += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd_plain(q, k, v, bias, seed, rate, do):
+    """dq, dk, dv by autograd through ``flash_attention_plain`` (the mask
+    regenerated from the seed): what the backward kernel is held against."""
+    with torch.enable_grad():
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = flash_attention_plain(*qkv, bias, seed, rate)
+        return torch.autograd.grad(out, qkv, do)
+
+
+def flash_attention_bwd(q, k, v, bias, seed, rate, do):
+    """The backward on its own: the kernel for CUDA tensors, the plain
+    autograd for CPU tensors."""
+    if q.device.type == "cuda":
+        return _backward_kernel(q, k, v, bias, seed, rate, do.contiguous())
+    return flash_attention_bwd_plain(q, k, v, bias, seed, rate, do)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, seed, rate):
+        ctx.save_for_backward(q, k, v, bias, seed)
+        ctx.rate = rate
+        if q.device.type == "cuda":
+            return _forward_kernel(q, k, v, bias, seed, rate)
+        return flash_attention_plain(q, k, v, bias, seed, rate)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, seed = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, bias, seed, ctx.rate, do)
+        # no gradient for the bias and the seed (JAX returns zeros)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, bias, seed=None, rate: float = 0.0,
+                    whole_sample: bool = False):
+    """q, k, v: (B, H, L, D); bias: (B, L) float32 additive key bias; seed:
+    an int32 tensor of one element (needed at ``rate > 0``); ``rate``:
+    dropout on the probabilities.  Returns the context (B, H, L, D) in q's
+    dtype, differentiable in q, k and v.
+
+    ``whole_sample`` selected a TPU grid; both grids are one function and
+    take the same kernels here."""
+    del whole_sample
+    _check(q, k, v, bias, seed, rate)
+    return _FlashAttention.apply(q, k, v, bias, seed, float(rate))

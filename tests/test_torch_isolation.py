@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no file of mimm_tpu_torch/ or
 chip_smoke.py imports jax, flax or the JAX package (mimm_tpu, cli,
-native), and importing the serving entry points leaves jax unloaded."""
+native), importing the serving and training entry points leaves jax
+unloaded, and ``_build.build_all`` builds every CUDA source."""
 
 import ast
 import glob
@@ -52,3 +53,39 @@ def test_serving_import_leaves_jax_unloaded():
                           cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_training_import_leaves_jax_unloaded():
+    code = ("import sys, json; import mimm_tpu_torch.train.mi, "
+            "mimm_tpu_torch.train.optim, mimm_tpu_torch.objectives.pairing, "
+            "mimm_tpu_torch.ops.pairwise_critic, mimm_tpu_torch.ops.dropout; "
+            "print(json.dumps(sorted(m for m in sys.modules if "
+            "m.split('.')[0] in %r)))" % (FORBIDDEN,))
+    proc = subprocess.run([sys.executable, "-c", code], env=child_env(),
+                          capture_output=True, text=True, timeout=120,
+                          cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_build_all_lists_every_cuda_source(monkeypatch, tmp_path):
+    """Every csrc/*.cu is built by build_all (one nvcc each), and a header
+    edit changes every library's hash."""
+    import shutil
+
+    from mimm_tpu_torch.ops import _build
+
+    csrc = os.path.join(REPO, "mimm_tpu_torch", "csrc")
+    want = sorted(os.path.basename(p)[:-3]
+                  for p in glob.glob(os.path.join(csrc, "*.cu")))
+    assert want == ["flash_attention_bwd", "flash_attention_fwd"]
+    monkeypatch.setattr(_build, "build", lambda name: f"lib{name}.so")
+    assert sorted(_build.build_all()) == want
+
+    copy = str(tmp_path / "csrc")
+    shutil.copytree(csrc, copy)
+    monkeypatch.setattr(_build, "CSRC", copy)
+    before = {n: _build.library_path(n) for n in want}
+    with open(os.path.join(copy, "philox.cuh"), "a") as f:
+        f.write("// edited\n")
+    assert all(_build.library_path(n) != before[n] for n in want)
