@@ -13,10 +13,14 @@ no arguments.  Phases:
    padded keys in each row: the flash forward at dropout rate 0 and 0.1,
    the flash backward (dQ, dK, dV) at rate 0 and 0.1, the realized keep
    rate of the Philox mask, and the CUDA Philox against Random123's
-   known-answer vectors;
-3. each kernel's time at (64, 12, 320, 64) beside its plain version's, one
-   PyTorch library call's (``scaled_dot_product_attention`` forward, or its
-   backward alone: a yardstick the port never calls) and its bound;
+   known-answer vectors; the pairwise-critic kernels (S and the seven
+   gradients) at (20, 12), (300, 257) and the GradCache step's 2048 x 2048
+   pairs, with the reference critic's widths;
+3. each kernel's time beside its plain version's and its bound: the flash
+   kernels at (64, 12, 320, 64) with one PyTorch library call's
+   (``scaled_dot_product_attention`` forward, or its backward alone: a
+   yardstick the port never calls), the critic kernels at 2048 x 2048
+   pairs with the factorized path (plain PyTorch and cuBLAS) as yardstick;
 4. the serving path through its entry point, the HTTP server of
    ``mimm_tpu_torch.cli.serve``, at full width: ResNet256_6_2_1, a 12-layer
    BERT-base TextBert with the flash gate open, and the Pneumonia
@@ -36,7 +40,16 @@ no arguments.  Phases:
    path; ``save_mi_checkpoints`` and a strict reload of its ``.bin`` files;
 6. where the device time of one image batch, one text batch and one train
    step at L=64 and at L=320 goes (torch.profiler);
-7. the ``kernels`` JSON line, the card line, and as the last line
+7. GradCache at full width (production preset, L=128) through
+   ``make_mi_train_step`` / ``make_mi_multi_step`` with
+   ``grad_cache_chunks``: B=256 in 4 chunks (under the critic's switch: no
+   critic kernel) and B=2048 in 32 chunks (past it: each critic kernel once
+   a step), one warm-up and 2 timed steps each, ms/step, pairs/s, peak
+   memory against the B=64 L=128 step's, and the critic's own memory;
+8. ``BertConfig.remat``: two B=64 L=320 bf16 steps at dropout 0.1 with
+   and without it, from one state (24 flash forward launches a step with
+   it, 12 without, 12 backward either way; the same losses);
+9. the ``kernels`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a card it exits before
@@ -45,6 +58,7 @@ printing any result.
 
 from __future__ import annotations
 
+import collections
 import io
 import json
 import math
@@ -72,9 +86,13 @@ from mimm_tpu_torch.config import (DEFAULT_CLASSIFIER_LAYERS,  # noqa: E402
 from mimm_tpu_torch.models.bert import BertConfig, TextBert  # noqa: E402
 from mimm_tpu_torch.models.joint import ImageReportModel  # noqa: E402
 from mimm_tpu_torch.models.mlp import BasicMLP  # noqa: E402
+from mimm_tpu_torch.models.mlp import make_mlp  # noqa: E402
 from mimm_tpu_torch.models.resnet import ResNet256_6_2_1  # noqa: E402
+from mimm_tpu_torch.objectives.pairing import \
+    pairwise_critic_scores  # noqa: E402
 from mimm_tpu_torch.ops import _build  # noqa: E402
 from mimm_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from mimm_tpu_torch.ops import pairwise_critic as pc  # noqa: E402
 from mimm_tpu_torch.ops.image_norm import device_normalize  # noqa: E402
 from mimm_tpu_torch.ops.philox import attention_keep_mask  # noqa: E402
 from mimm_tpu_torch.serve import InferenceSession  # noqa: E402
@@ -135,6 +153,30 @@ TIMED_STEPS = 3
 STEP_LOSS_ATOL = 1e-5
 STEP_MAX_ABS = 2.5 * TrainingConfig().init_lr
 STEP_FLIP_SHARE = 1e-3
+# the pairwise critic kernels: (B_img, B_txt) shapes of the check, the
+# last the GradCache step's; H1, H2 of the reference critic
+CRITIC_SHAPES = ((20, 12), (300, 257), (2048, 2048))
+CRITIC_HIDDEN = mi.CRITIC_HIDDEN
+CRITIC_ROWS = 256          # image rows per block of the plain version
+# kernel against plain version, max abs error over max |reference|.  The
+# inputs lie on a 2^-6 grid, so z2 is exact in f32 in any summation order
+# and the relu masks of the two agree; what remains is the order of the
+# later f32 sums: 1e-4 for S and dh (≤ 2048·512 terms), 1e-3 for the
+# weight gradients, which sum 4.2 M pair terms in another order.
+CRITIC_TOL = {"S": 1e-4, "dh_img": 1e-4, "dh_txt": 1e-4, "db1": 1e-3,
+              "dW2": 1e-3, "db2": 1e-3, "dw3": 1e-3, "db3": 1e-3}
+CRITIC_SRC = {
+    "fwd": ("mimm_tpu_torch/csrc/pairwise_critic_fwd.cu",
+            "mimm_tpu/ops/pairwise_critic.py:144"),
+    "bwd_img": ("mimm_tpu_torch/csrc/pairwise_critic_bwd.cu",
+                "mimm_tpu/ops/pairwise_critic.py:205"),
+    "bwd_w": ("mimm_tpu_torch/csrc/pairwise_critic_bwd.cu",
+              "mimm_tpu/ops/pairwise_critic.py:205"),
+    "bwd_reduce": ("mimm_tpu_torch/csrc/pairwise_critic_bwd.cu",
+                   "mimm_tpu/ops/pairwise_critic.py:205"),
+    "bwd_txt": ("mimm_tpu_torch/csrc/pairwise_critic_bwd.cu",
+                "mimm_tpu/ops/pairwise_critic.py:270")}
+CRITIC_TIMED = 3           # ~0.1-1 s a launch at the GradCache shape
 
 
 def card_line() -> str:
@@ -271,6 +313,61 @@ def check_kernels(device, shapes=CHECK_SHAPES) -> dict:
     return {"worst": worst, "keep_rate": keep_rate}
 
 
+def critic_inputs(n_img, n_txt, hidden, gen, device):
+    """(h_img, h_txt, b1, W2, b2, w3, b3, g) on a 2^-6 grid (see
+    CRITIC_TOL), float32, from a seeded generator."""
+    h1, h2 = hidden
+
+    def grid(shape, bound):
+        n = int(bound * 64)
+        return torch.randint(-n, n + 1, shape, generator=gen,
+                             device=device).float() / 64
+
+    return (grid((n_img, h1), 2.0), grid((n_txt, h1), 2.0), grid((h1,), 0.5),
+            grid((h1, h2), 0.25), grid((h2,), 0.5), grid((h2, 1), 0.5),
+            grid((1,), 1.0), grid((n_img, n_txt), 1.0))
+
+
+def check_critic(device, shapes=CRITIC_SHAPES, hidden=CRITIC_HIDDEN) -> dict:
+    """The critic kernels against their plain versions: S and the seven
+    gradients per shape; raises past CRITIC_TOL.  The plain version runs
+    CRITIC_ROWS image rows at a time past that many.  Returns the largest
+    max abs error per kernel name."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    worst = dict.fromkeys(pc.KERNELS.values(), 0.0)
+    names = ("S", "dh_img", "dh_txt", "db1", "dW2", "db2", "dw3", "db3")
+    weights = ("db1", "dW2", "db2", "dw3", "db3")
+    for n_img, n_txt in shapes:
+        args = critic_inputs(n_img, n_txt, hidden, gen, device)
+        rows = CRITIC_ROWS if n_img > CRITIC_ROWS else None
+        got = [pc.pair_scores(*args[:7]), *pc.pair_scores_bwd(*args)]
+        _sync(device)
+        want = [pc.pair_scores_plain(*args[:7], rows=rows),
+                *pc.pair_scores_bwd_plain(*args, rows=rows)]
+        _sync(device)
+        errs = {n: _scaled_err(a, b) if a.shape == b.shape else math.inf
+                for n, a, b in zip(names, got, want)}
+        abs_err = {n: (a - b).abs().max().item()
+                   for n, a, b in zip(names, got, want)}
+        print(f"  pairwise critic {(n_img, n_txt, *hidden)}: scaled max err "
+              + ", ".join(f"{n} {errs[n]:.2e}" for n in names)
+              + f" (tol {CRITIC_TOL['S']:.0e} for S and dh, "
+              f"{CRITIC_TOL['dW2']:.0e} for the weights)")
+        bad = [n for n in names if not errs[n] <= CRITIC_TOL[n]]
+        if bad:
+            raise AssertionError(f"critic kernels disagree with the plain "
+                                 f"version at {(n_img, n_txt)}: {bad} {errs}")
+        k = pc.KERNELS
+        for name, err in ((k["fwd"], abs_err["S"]),
+                          (k["bwd_img"], abs_err["dh_img"]),
+                          (k["bwd_txt"], abs_err["dh_txt"]),
+                          (k["bwd_w"], max(abs_err[n] for n in weights)),
+                          (k["bwd_reduce"], max(abs_err[n] for n in weights))):
+            worst[name] = max(worst[name], err)
+        del got, want, args
+    return worst
+
+
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -348,6 +445,109 @@ def time_kernels() -> dict:
                       f"us ({bound_by}), kernel at "
                       f"{100 * bound_ms / ms:.1f}% of the bound  [{card}]")
             del sdpa
+    return out
+
+
+def critic_bounds(n_img, n_txt, hidden, splits) -> dict:
+    """{kind: (ms, 'bytes' | 'operations')} of each critic kernel, and
+    'bwd' for the whole backward.  One pair product is 2·P·H1·H2 f32
+    FLOP at 67 TFLOP/s; the forward does one, each rows kernel and the dW2
+    kernel two, and the whole backward cannot do fewer than three (the z2
+    recompute, dt, dW2).  Their bytes (h rows, W2, g, S, the gradients:
+    tens of MB) are far below.  The sums kernel moves bytes only: the
+    partials and dh_img read once, the gradients written once."""
+    h1, h2 = hidden
+    pairs = n_img * n_txt
+    prod = 2 * pairs * h1 * h2 / PEAK_FLOP_PER_S[torch.float32] * 1e3
+    io = 4 * ((n_img + n_txt) * h1 + h1 * h2 + 2 * h2 + h1 + 1 + pairs)
+    io_ms = io / HBM_BYTES_PER_S * 1e3
+    out = {kind: (max(n * prod, io_ms), "operations" if n * prod >= io_ms
+                  else "bytes")
+           for kind, n in (("fwd", 1), ("bwd_img", 2), ("bwd_txt", 2),
+                           ("bwd_w", 2), ("bwd", 3))}
+    red = 4 * (splits * (h1 * h2 + 2 * h2 + 1) + n_img * h1
+               + h1 * h2 + h1 + 2 * h2 + 1)
+    out["bwd_reduce"] = (red / HBM_BYTES_PER_S * 1e3, "bytes")
+    return out
+
+
+def time_critic(shape=CRITIC_SHAPES[-1], hidden=CRITIC_HIDDEN) -> dict:
+    """{kind: times} of each critic kernel at the GradCache shape (CUDA
+    events, CRITIC_TIMED launches after one), beside the plain versions and
+    the factorized path (objectives/pairing.py, plain PyTorch and cuBLAS:
+    the port's path under the switch), a yardstick and no single library
+    call.  Also the kernel path and the factorized path from embeddings,
+    forward and forward + backward, at B=1024, where both fit."""
+    card = card_line()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    args = critic_inputs(*shape, hidden, gen, "cuda")
+    bargs = (*args[:6], args[7])
+    dh_img = pc.bwd_rows_kernel(bargs, txt=False)
+    parts = pc.bwd_w_kernel(bargs)
+    calls = {"fwd": lambda: pc.pair_scores(*args[:7]),
+             "bwd_img": lambda: pc.bwd_rows_kernel(bargs, txt=False),
+             "bwd_txt": lambda: pc.bwd_rows_kernel(bargs, txt=True),
+             "bwd_w": lambda: pc.bwd_w_kernel(bargs),
+             "bwd_reduce": lambda: pc.bwd_reduce_kernel(parts, dh_img)}
+    ms = {kind: time_ms(call, iters=CRITIC_TIMED, warmup=1)
+          for kind, call in calls.items()}
+    plain = {"fwd": time_ms(lambda: pc.pair_scores_plain(
+        *args[:7], rows=CRITIC_ROWS), iters=CRITIC_TIMED, warmup=1),
+        "bwd": time_ms(lambda: pc.pair_scores_bwd_plain(
+            *args, rows=CRITIC_ROWS), iters=CRITIC_TIMED, warmup=1)}
+    bounds = critic_bounds(*shape, hidden, pc.bwd_splits(*shape))
+    out = {}
+    for kind in calls:
+        bound_ms, bound_by = bounds[kind]
+        out[kind] = dict(ms=ms[kind], plain_ms=plain["fwd" if kind == "fwd"
+                                                      else "bwd"],
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=None)
+        print(f"  {pc.KERNELS[kind]} {shape + hidden}: kernel {ms[kind]:.4f}"
+              f" ms, bound {bound_ms:.4f} ms ({bound_by}), kernel at "
+              f"{100 * bound_ms / ms[kind]:.1f}% of the bound  [{card}]")
+    bwd_ms = sum(ms[k] for k in calls if k != "fwd")
+    print(f"  critic backward {shape + hidden}: four kernels {bwd_ms:.4f} ms "
+          f"(6 pair products), bound of the backward {bounds['bwd'][0]:.4f} "
+          f"ms (3 products); plain forward {plain['fwd']:.4f} ms, plain "
+          f"backward {plain['bwd']:.4f} ms ({CRITIC_ROWS} image rows a "
+          f"block)  [{card}]")
+    del args, bargs, dh_img, parts
+
+    # the factorized path beside the kernel path, from 768-d embeddings;
+    # the factorized forward at 2048 needs three (n, n, H1) f32 tensors
+    critic = [{k: t.cuda() for k, t in layer.items()} for layer in make_mlp(
+        2 * BERT_BASE["hidden_size"], list(hidden),
+        generator=torch.Generator().manual_seed(SEED + 6))]
+    paths = {"factorized": pairwise_critic_scores,
+             "kernel": lambda p, a, b: pc.pairwise_critic_scores_pallas(
+                 p, a, b, force_kernel=True)}
+    big = 2048 if 2048 ** 2 * hidden[0] * 4 * 3 < torch.cuda.mem_get_info()[0] \
+        else 1024
+    fact = {}
+    for path, what, n in (("factorized", "fwd", big),
+                          ("factorized", "fwd", 1024), ("kernel", "fwd", 1024),
+                          ("factorized", "fwd+bwd", 1024),
+                          ("kernel", "fwd+bwd", 1024)):
+        emb = [torch.randn(n, BERT_BASE["hidden_size"], generator=gen,
+                           device="cuda") for _ in range(2)]
+        params = [{k: t.detach().requires_grad_(what != "fwd")
+                   for k, t in layer.items()} for layer in critic]
+        fn = paths[path]
+
+        def call():
+            if what == "fwd":
+                with torch.no_grad():
+                    fn(params, *emb)
+            else:
+                fn(params, *emb).sum().backward()
+
+        key = f"{path} {what} B={n}"
+        fact[key] = time_ms(call, iters=CRITIC_TIMED, warmup=1)
+        print(f"  {path} path {what} at B={n}: {fact[key]:.4f} ms  [{card}]")
+        del emb, params
+        torch.cuda.empty_cache()
+    out["yardstick"] = fact
     return out
 
 
@@ -738,7 +938,7 @@ def drive_training(root: str, device, bert_kw=TRAIN_BERT, batch=BATCH,
     rng = np.random.default_rng(SEED)
     layers = bc.num_hidden_layers
     flash_names = (fa.KERNELS[torch.bfloat16], fa.BWD_KERNELS[torch.bfloat16])
-    ms, losses, batches = {}, [], {}
+    ms, losses, batches, peak = {}, [], {}, {}
     fa.reset_launch_counts()            # the training path's run starts here
     for seq in buckets:
         data = batches[seq] = compact_batch(rng, batch, seq, bc.vocab_size,
@@ -757,8 +957,9 @@ def drive_training(root: str, device, bert_kw=TRAIN_BERT, batch=BATCH,
         losses.append(step_losses)
         per_step = [(fa.LAUNCHES[n] - before.get(n, 0)) / TIMED_STEPS
                     for n in flash_names]
-        mem = f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB" \
-            if cuda else "not measured"
+        if cuda:
+            peak[seq] = torch.cuda.max_memory_allocated()
+        mem = f"{peak[seq] / 2 ** 30:.2f} GiB" if cuda else "not measured"
         print(f"  L={seq}: {ms[seq]:.3f} ms/step ({batch / ms[seq] * 1e3:.1f}"
               f" pairs/s, host clock, {TIMED_STEPS} steps after 1 warm-up), "
               f"peak memory {mem}, flash launches per step fwd {per_step[0]:g}"
@@ -788,7 +989,8 @@ def drive_training(root: str, device, bert_kw=TRAIN_BERT, batch=BATCH,
     launches = dict(fa.LAUNCHES)        # ... and ends here
     print(f"training-path launches: {launches}")
     return {"launches": launches, "ms": ms, "per_s": per_s, "cmp": step_cmp,
-            "state": state, "step": train_step, "batches": batches}
+            "state": state, "step": train_step, "batches": batches,
+            "peak": peak}
 
 
 # ---- phase 6: where the device time goes ---------------------------------------
@@ -845,6 +1047,198 @@ def profile_train_steps(train: dict) -> None:
                      train["ms"][seq], card_line())
 
 
+# ---- phase 7: GradCache at full width ------------------------------------------
+
+# (batch, grad_cache_chunks) at L=128, as tools/bench_grad_cache.py drives
+# JAX: chunks of 64; 256 is under the critic's 8 GiB switch, 2048 past it
+GC_CONFIGS = ((256, 4), (2048, 32))
+GC_SEQ = 128
+GC_TIMED = 2
+CRITIC_MEMORY_LIMIT = 2 ** 30
+
+
+def critic_memory(critic, batch: int, width: int, device) -> int:
+    """Device bytes one critic forward + backward adds at ``batch``
+    (the h products, S, the gradients, the kernels' scratch), from
+    random embeddings."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    emb = [torch.randn(batch, width, generator=gen, device=device)
+           .requires_grad_() for _ in range(2)]
+    g = torch.randn(batch, batch, generator=gen, device=device)
+    params = [{k: t.detach().requires_grad_() for k, t in layer.items()}
+              for layer in critic]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    scores = pc.pairwise_critic_scores_pallas(params, *emb)
+    grads = torch.autograd.grad(scores, [*emb, *mi.critic_dict(params)
+                                         .values()], g)
+    torch.cuda.synchronize()
+    del scores, grads
+    return torch.cuda.max_memory_allocated() - base
+
+
+def drive_grad_cache(device, bert_kw=TRAIN_BERT, configs=GC_CONFIGS,
+                     seq=GC_SEQ, direct_peak=None) -> dict:
+    """GradCache through ``make_mi_train_step`` / ``make_mi_multi_step``
+    with ``grad_cache_chunks``, production preset, full width: one warm-up
+    and GC_TIMED timed steps per (batch, chunks).  Past the critic's switch
+    each step runs the critic's autograd function once forward and once
+    backward, so each critic kernel launches once a step; under it none
+    does.  Returns the critic path's launches and the per-config times."""
+    cuda = torch.device(device).type == "cuda"
+    card = card_line() if cuda else "cpu"
+    bc = BertConfig(**bert_kw)
+    rng = np.random.default_rng(SEED + 7)
+    names = list(pc.KERNELS.values())
+    out, losses = {}, []
+    # the path's launches: those of the warm-up and timed steps (the memory
+    # probe and the profiled step below are not counted)
+    counted = collections.Counter()
+    fa.reset_launch_counts()
+    pc.reset_launch_counts()
+    for batch, chunks in configs:
+        cfg = TrainingConfig.production(batch_size=batch,
+                                        grad_cache_chunks=chunks)
+        model = mi.build_joint_model(cfg, bc, device=device)
+        txs = mi.make_optimizers(cfg, steps_per_epoch=200_000 // batch)
+        state = mi.create_mi_state(model, cfg, txs,
+                                   torch.Generator().manual_seed(SEED))
+        data = compact_batch(rng, batch, seq, bc.vocab_size, device)
+        start = dict(pc.LAUNCHES)
+        state, loss = mi.make_mi_train_step(model, txs, cfg)(state, data)
+        losses.append(loss[None])                       # warm-up
+        stacked = {k: torch.stack([v] * GC_TIMED) for k, v in data.items()}
+        _sync(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        before, flash_before = dict(pc.LAUNCHES), sum(fa.LAUNCHES.values())
+        t0 = time.perf_counter()
+        state, step_losses = mi.make_mi_multi_step(model, txs, cfg)(state,
+                                                                    stacked)
+        _sync(device)
+        ms = (time.perf_counter() - t0) / GC_TIMED * 1e3
+        losses.append(step_losses)
+        per_step = {n: (pc.LAUNCHES[n] - before.get(n, 0)) / GC_TIMED
+                    for n in names}
+        counted.update({n: pc.LAUNCHES[n] - start.get(n, 0) for n in names})
+        flash = (sum(fa.LAUNCHES.values()) - flash_before) / GC_TIMED
+        peak = torch.cuda.max_memory_allocated() if cuda else None
+        mem = f"{peak / 2 ** 30:.2f} GiB" if cuda else "not measured"
+        kernel = pc.uses_kernel(batch, batch, CRITIC_HIDDEN[0])
+        print(f"  B={batch} in {chunks} chunks of {batch // chunks}, L={seq}:"
+              f" {ms:.3f} ms/step ({batch / ms * 1e3:.1f} pairs/s, host "
+              f"clock, {GC_TIMED} steps after 1 warm-up), peak memory {mem}, "
+              f"critic kernels {'past' if kernel else 'under'} the switch, "
+              f"launches per step {per_step}, flash launches per step "
+              f"{flash:g}, losses {[round(x, 6) for x in step_losses.tolist()]}"
+              f"  [{card}]")
+        if cuda and (set(per_step.values()) != {1 if kernel else 0}
+                     or flash != 0):
+            raise AssertionError(f"B={batch}: critic launches per step "
+                                 f"{per_step} (want {int(kernel)} of each),"
+                                 f" flash {flash} (want 0)")
+        out[batch] = {"chunks": chunks, "ms": ms, "pairs_per_s":
+                      batch / ms * 1e3, "peak": peak}
+        if kernel and cuda:
+            out["critic_bytes"] = critic_memory(state.critic_params, batch,
+                                                BERT_BASE["hidden_size"],
+                                                device)
+            print(f"  critic forward + backward at B={batch}: "
+                  f"{out['critic_bytes'] / 2 ** 20:.1f} MiB of device memory"
+                  f" (h products, S, gradients, scratch; limit "
+                  f"{CRITIC_MEMORY_LIMIT / 2 ** 30:.0f} GiB)  [{card}]")
+            if not out["critic_bytes"] < CRITIC_MEMORY_LIMIT:
+                raise AssertionError(f"critic memory {out['critic_bytes']}")
+            if direct_peak is not None and not peak <= 2 * direct_peak:
+                raise AssertionError(f"GradCache peak {peak} > twice the "
+                                     f"B=64 direct step's {direct_peak}")
+            profile_call(f"GradCache step B={batch} in {chunks} chunks, "
+                         f"L={seq}, ms/step above",
+                         lambda: mi.make_mi_train_step(model, txs, cfg)(
+                             state, data), ms, card)
+        del model, state, data, stacked
+        if cuda:
+            torch.cuda.empty_cache()
+    flat = torch.cat(losses).float().cpu()
+    if not torch.isfinite(flat).all() or len(set(flat.tolist())) != len(flat):
+        raise AssertionError(f"GradCache losses not finite and distinct: "
+                             f"{flat.tolist()}")
+    out["launches"] = {n: c for n, c in counted.items() if c}
+    print(f"GradCache-path launches: {out['launches']}, flash "
+          f"{dict(fa.LAUNCHES)}")
+    return out
+
+
+# ---- phase 8: BERT remat ---------------------------------------------------------
+
+REMAT_STEPS = 2     # the text tower's first AdamW update is 0 (warmup)
+
+
+def drive_remat(device, bert_kw=TRAIN_BERT, batch=BATCH, seq=SEQ) -> dict:
+    """REMAT_STEPS bf16 steps at dropout 0.1 with ``BertConfig.remat``
+    against the same steps without, from one state and one seed: the same
+    losses, updated parameters within the flash-vs-plain step's limits
+    (the text tower and the critic should agree exactly: the recompute runs
+    the same kernels on the same inputs with the same masks), and per step
+    twice the flash forward launches (each layer recomputed)."""
+    cuda = torch.device(device).type == "cuda"
+    cfg = TrainingConfig.production()
+    data = compact_batch(np.random.default_rng(SEED + 9), batch, seq,
+                         bert_kw["vocab_size"], device)
+    layers = bert_kw["num_hidden_layers"]
+    names = (fa.KERNELS[torch.bfloat16], fa.BWD_KERNELS[torch.bfloat16])
+    runs = {}
+    fa.reset_launch_counts()            # the remat path's run starts here
+    for remat in (True, False):
+        bc = BertConfig(**dict(bert_kw, remat=remat))
+        model = mi.build_joint_model(cfg, bc, device=device)
+        txs = mi.make_optimizers(cfg, steps_per_epoch=200_000 // batch)
+        state = mi.create_mi_state(model, cfg, txs,
+                                   torch.Generator().manual_seed(SEED + 10))
+        step = mi.make_mi_train_step(model, txs, cfg)
+        before = dict(fa.LAUNCHES)
+        losses = [step(state, data)[1].item()]          # warm-up
+        _sync(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses += [step(state, data)[1].item()
+                   for _ in range(REMAT_STEPS - 1)]
+        _sync(device)
+        ms = (time.perf_counter() - t0) / (REMAT_STEPS - 1) * 1e3
+        per_step = [(fa.LAUNCHES[n] - before.get(n, 0)) / REMAT_STEPS
+                    for n in names]
+        mem = f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB" \
+            if cuda else "not measured"
+        print(f"  remat={remat}: {ms:.3f} ms/step (host clock, the step "
+              f"after the first), peak memory {mem}")
+        runs[remat] = (losses, _snapshot(state), per_step)
+        del model, state, step
+        if cuda:
+            torch.cuda.empty_cache()
+    (l_r, a, launched), (l_p, b, plain) = runs[True], runs[False]
+    out = {}
+    for g in a:
+        d = torch.cat([(a[g][n] - b[g][n]).abs().reshape(-1) for n in a[g]])
+        out[g] = (d.max().item(), (d > 1e-6).float().mean().item())
+    print(f"  bf16 L={seq} B={batch}, {REMAT_STEPS} steps at dropout 0.1, "
+          f"remat against no remat: losses {l_r} vs {l_p}; flash launches per"
+          f" step fwd, bwd {launched} vs {plain}; max |dparam|, share > 1e-6:"
+          + ", ".join(f"{g} {out[g][0]:.2e}, {out[g][1]:.2e}" for g in a)
+          + f" (tol {STEP_MAX_ABS:.1e}, {STEP_FLIP_SHARE:.0e})  "
+          f"[{card_line() if cuda else 'cpu'}]")
+    want = ([2 * layers, layers], [layers, layers]) if cuda else (
+        [0, 0], [0, 0])
+    if l_r != l_p or (launched, plain) != want or not all(
+            out[g][0] <= STEP_MAX_ABS and out[g][1] <= STEP_FLIP_SHARE
+            for g in a):
+        raise AssertionError(f"remat step differs: losses {l_r} {l_p}, "
+                             f"launches {launched} {plain}, {out}")
+    out["launches"] = dict(fa.LAUNCHES)     # ... and ends here
+    return out
+
+
 # ---- main ----------------------------------------------------------------------
 
 def main() -> int:
@@ -859,8 +1253,10 @@ def main() -> int:
     versions_and_build()
     print("== phase 2: kernels against their plain versions")
     checked = check_kernels("cuda")
-    print("== phase 3: timing at (64, 12, 320, 64)")
+    critic_worst = check_critic("cuda")
+    print("== phase 3: timing at (64, 12, 320, 64) and at 2048 x 2048 pairs")
     times = time_kernels()
+    critic_times = time_critic()
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
         print("== phase 4: the serving path over HTTP (full width)")
         serve = drive_serving(root, "cuda")
@@ -870,28 +1266,44 @@ def main() -> int:
         profile_batches(serve["save"], serve["config"], serve["data"])
         profile_train_steps(train)
     del train["state"], train["batches"]
+    torch.cuda.empty_cache()
+    print(f"== phase 7: GradCache (full width, production preset, L={GC_SEQ})")
+    grad_cache = drive_grad_cache("cuda", direct_peak=train["peak"][GC_SEQ])
+    print(f"== phase 8: BERT remat (full width, B={BATCH}, L={SEQ})")
+    remat = drive_remat("cuda")
 
     # each path's launches, counted from 0 just before it and read just
-    # after; both paths run the forward kernels, training the backward too
+    # after; serving runs the flash forward, training and remat the flash
+    # backward too, GradCache the critic kernels
+    flash_all = [*fa.KERNELS.values(), *fa.BWD_KERNELS.values()]
     paths = {"serving": (serve["launches"], fa.KERNELS.values()),
-             "training": (train["launches"],
-                          [*fa.KERNELS.values(), *fa.BWD_KERNELS.values()])}
+             "training": (train["launches"], flash_all),
+             "grad_cache": (grad_cache["launches"], pc.KERNELS.values()),
+             "remat": (remat["launches"],
+                       [fa.KERNELS[torch.bfloat16],
+                        fa.BWD_KERNELS[torch.bfloat16]])}
     for path, (counts, names) in paths.items():
         for name in names:
             if counts.get(name, 0) == 0:
                 raise AssertionError(f"{name} was not launched on the {path} "
                                      f"path")
+    launches = lambda name: sum(c.get(name, 0) for c, _ in paths.values())
     kernels = []
     for kind, names in (("fwd", fa.KERNELS), ("bwd", fa.BWD_KERNELS)):
         for dt in DTYPES:
             name = names[dt]
             kernels.append({
                 "name": name, "route": "cuda", "source": FLASH[kind][0],
-                "replaces": FLASH[kind][1],
-                "launches": sum(c.get(name, 0) for c, _ in paths.values()),
+                "replaces": FLASH[kind][1], "launches": launches(name),
                 "max_abs_err": checked["worst"][kind, dt],
                 **times[kind, dt][RATES[-1]],
                 "ms_rate0": times[kind, dt][0.0]["ms"]})
+    for kind, name in pc.KERNELS.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": CRITIC_SRC[kind][0],
+            "replaces": CRITIC_SRC[kind][1], "launches": launches(name),
+            "max_abs_err": critic_worst[name], **critic_times[kind]})
+    kernels[-len(pc.KERNELS)]["factorized_ms"] = critic_times["yardstick"]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

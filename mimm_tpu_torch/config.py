@@ -31,14 +31,15 @@ class TrainingConfig:
     knobs that the MI step reads, with the JAX defaults.
 
     The port runs: ``compute_dtype``, ``mi_estimator``, ``use_pallas_critic``
-    (the critic's size switch), ``flash_attention``, ``gelu_tanh``,
-    ``u8_dropout``, both moment dtypes, the freezes, and
-    ``global_negatives`` on one device.  TPU schedules it accepts because
-    they give the same result: ``scan_steps`` (K steps run as a loop),
-    ``rng_impl`` (masks come from torch generators), ``compact_transfer``.
-    Knobs of later slices raise in ``train/mi.py`` when set: ``s2d_stem``,
-    ``pallas_stem``, ``fused_ffn``, ``grad_cache_chunks`` > 1, the mesh
-    and parallel modes."""
+    (the critic's size switch: the pairwise-critic kernels past it),
+    ``flash_attention``, ``gelu_tanh``, ``u8_dropout``, both moment dtypes,
+    the freezes, ``grad_cache_chunks`` (GradCache's two passes above 1),
+    and ``global_negatives`` on one device.  TPU schedules it accepts
+    because they give the same result: ``scan_steps`` (K steps run as a
+    loop), ``rng_impl`` (masks come from torch generators),
+    ``compact_transfer``.  Knobs of later slices raise in ``train/mi.py``
+    when set: ``pallas_stem``, ``fused_ffn``, the mesh and parallel
+    modes."""
 
     bert_pretrained_dir: str = _default("bert_pretrain_all_notes_150000")
     bert_config_name: str = "bert_config.json"

@@ -30,6 +30,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mimm_tpu_torch.ops.dropout import dropout_fn
 from mimm_tpu_torch.ops.flash_attention import flash_attention
@@ -40,9 +41,9 @@ class BertConfig:
     """pytorch_transformers BertConfig fields + the JAX package's knobs.
 
     ``packed_dropout`` / ``u8_dropout`` pick the training dropout
-    (ops/dropout.py); ``remat`` raises in a training forward: it comes with
-    the GradCache slice, whose recompute needs masks derived from per-layer
-    seeds.  ``whole_sample`` selection (``flash_whole_sample_max_len``)
+    (ops/dropout.py); ``remat`` recomputes each encoder layer's activations
+    in the backward (``nn.remat(BertLayer)``), with the forward's dropout
+    masks.  ``whole_sample`` selection (``flash_whole_sample_max_len``)
     picked a TPU grid; both grids are one function here."""
 
     vocab_size: int = 30522
@@ -247,18 +248,38 @@ class BertModel(nn.Module):
         # (B, 1, 1, L) additive mask, -10000 on padding, formed in the
         # compute dtype (-9984 in bfloat16) as pytorch_transformers does
         attn_bias = (1.0 - attention_mask[:, None, None, :].to(dt)) * -10000.0
+        remat = cfg.remat and torch.is_grad_enabled()
         for layer in self.encoder.layer:
-            hidden = layer(hidden, attn_bias, deterministic, generator)
+            if remat:
+                hidden = _remat_layer(layer, hidden, attn_bias, deterministic,
+                                      generator)
+            else:
+                hidden = layer(hidden, attn_bias, deterministic, generator)
         pooled = torch.tanh(_linear(self.pooler.dense, hidden[:, 0]))
         return hidden, pooled
 
 
+def _remat_layer(layer: BertLayer, hidden, attn_bias, deterministic: bool,
+                 generator: Optional[torch.Generator]):
+    """``nn.remat(BertLayer)`` (mimm_tpu/models/bert.py:336): the layer's
+    activations are recomputed in the backward instead of kept.
+    ``torch.utils.checkpoint`` restores only the default generators, so the
+    explicit generator's state is taken here and set again at the start of
+    each run of the layer: the recompute draws the forward's dropout masks
+    and flash seed, and remat changes no result, as in flax, whose RNG
+    streams do not depend on ``nn.remat``."""
+    state = None if generator is None else generator.get_state()
+
+    def run(h, bias):
+        if state is not None:
+            generator.set_state(state)
+        return layer(h, bias, deterministic, generator)
+
+    return checkpoint(run, hidden, attn_bias, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def _check_training(config: BertConfig, generator) -> None:
-    if config.remat:
-        raise NotImplementedError(
-            "BertConfig.remat in training comes with the GradCache slice "
-            "(ROADMAP.md queue A): a recompute must draw the forward's "
-            "dropout masks, which needs masks derived from per-layer seeds")
     rates = (config.hidden_dropout_prob, config.attention_probs_dropout_prob)
     if generator is None and any(r > 0.0 for r in rates):
         raise ValueError("a training forward with dropout needs an explicit "

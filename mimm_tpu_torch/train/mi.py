@@ -13,10 +13,19 @@ The state's modules and critic tensors are updated in place.  Randomness
 comes from one ``torch.Generator`` per step on the model's device, seeded
 from (cfg.seed, step), the counterpart of ``fold_in(key(seed), step)``.
 
+``cfg.grad_cache_chunks`` > 1 takes the GradCache body (mi.py:478-557):
+a chunked forward without gradients that keeps only the embeddings, the
+full-batch critic scores and bound with the gradients of the critic and of
+the embeddings, then a chunked re-forward that pulls the embeddings'
+gradients back to the towers' parameters one chunk at a time.  The (B, B)
+negative pool spans the whole batch while the towers' activations are
+those of one chunk: B=2048 trains on one card in 32 chunks of 64, where
+the critic's size switch takes the pairwise-critic kernels.
+
 Left to later slices, and raising ``NotImplementedError`` when asked for:
 the mesh and parallel modes (pp, ZeRO-1, FSDP, sequence parallelism, bf16
-gradient all-reduce, per-shard negatives), GradCache, and the native
-resume checkpoint.
+gradient all-reduce, per-shard negatives) and the native resume
+checkpoint.
 """
 
 from __future__ import annotations
@@ -209,6 +218,24 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return gen
 
 
+_MASK64 = (1 << 64) - 1
+
+
+def chunk_generator(seed: int, step: int, chunk: int,
+                    device) -> torch.Generator:
+    """The generator of chunk ``chunk`` of a GradCache step: the step's
+    seed and the chunk through splitmix64, a stream apart from the direct
+    step's (the counterpart of ``fold_in(step_key, chunk)``).  Pass 2 makes
+    it again, so a chunk's re-forward draws pass 1's masks."""
+    x = ((((seed & 0x7FFFFFFF) << 32) | (step & 0xFFFFFFFF))
+         + (chunk + 1) * 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    gen = torch.Generator(device=device)
+    gen.manual_seed(x ^ (x >> 31))
+    return gen
+
+
 def _check_slice(cfg, data_shards: int, mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(f"a mesh (pp, tp, data parallel) {_PARALLEL}")
@@ -220,44 +247,43 @@ def _check_slice(cfg, data_shards: int, mesh) -> None:
             raise NotImplementedError(f"{knob} {_PARALLEL}")
     if cfg.grad_allreduce_dtype not in ("float32", ""):
         raise NotImplementedError(f"grad_allreduce_dtype {_PARALLEL}")
-    if cfg.grad_cache_chunks > 1:
-        raise NotImplementedError(
-            "grad_cache_chunks > 1 comes with the GradCache slice (ROADMAP.md "
-            "queue A), with the critic kernels and remat")
 
 
 def make_mi_step_body(model: ImageReportModel, txs: MIOptimizers, cfg,
                       data_shards: int = 1, mesh=None) -> Callable:
     """(state, batch) -> (state, loss): forward, pair scores, bound,
-    backward and the three optimizer updates.  ``batch``: the compact
-    layout (uint8/uint16 images, uint16 ids, uint8 masks and segments,
-    int64 ``study_id``) or already wide tensors, on the model's device."""
+    backward and the three optimizer updates, directly or, with
+    ``cfg.grad_cache_chunks`` > 1, in GradCache's two passes.  ``batch``:
+    the compact layout (uint8/uint16 images, uint16 ids, uint8 masks and
+    segments, int64 ``study_id``) or already wide tensors, on the model's
+    device."""
     _check_slice(cfg, data_shards, mesh)
     estimator = cfg.mi_estimator
     score_fn = pairwise_critic_scores_pallas if cfg.use_pallas_critic \
         else pairwise_critic_scores
+    chunks = max(1, int(cfg.grad_cache_chunks))
 
-    def step_body(state: MITrainState, batch: dict):
-        device = next(model.parameters()).device
-        gen = step_generator(cfg.seed, state.step, device)
+    def loss_from_embeddings(critic_params, emb_img, emb_txt, sids):
+        """Embeddings -> bound, shared by both bodies (mi.py:217-235)."""
+        return bound_from_scores(
+            estimator, score_fn(critic_params, emb_img, emb_txt), sids)
+
+    def embed(batch, generator):
+        """One towers' forward in train mode; decompacts here so that a
+        GradCache chunk widens only its own images."""
         wide = decompact_batch(batch)
         emb_img, emb_txt, _, _ = model(
             wide["image"], wide["txt_ids"], wide["txt_masks"],
-            wide["txt_segments"], train=True, generator=gen)
-        loss = bound_from_scores(
-            estimator, score_fn(state.critic_params, emb_img, emb_txt),
-            batch["study_id"])
+            wide["txt_segments"], train=True, generator=generator)
+        return emb_img, emb_txt
+
+    def groups_of(state: MITrainState) -> list:
         params = state.params
-        groups = [params["image_model"], params["text_model"],
-                  critic_dict(state.critic_params)]
-        names = [(gi, n) for gi, g in enumerate(groups) for n in g]
-        flat = [groups[gi][n] for gi, n in names]
-        grads = [{}, {}, {}]
-        # parameters off the loss's path (BERT classifier, ResNet fc1) get
-        # zeros, as JAX hands optax: adamw_hf still decays them
-        for (gi, n), t, g in zip(names, flat, torch.autograd.grad(
-                loss, flat, allow_unused=True)):
-            grads[gi][n] = torch.zeros_like(t) if g is None else g
+        return [params["image_model"], params["text_model"],
+                critic_dict(state.critic_params)]
+
+    def finish_step(state: MITrainState, loss, groups, grads):
+        """The three optimizer updates (main_utils.py:226-230)."""
         img_g, txt_g, mi_g = grads
         img_u, state.img_opt = txs.img.update(img_g, state.img_opt, groups[0])
         txt_u, state.txt_opt = txs.txt.update(txt_g, state.txt_opt, groups[1])
@@ -267,7 +293,93 @@ def make_mi_step_body(model: ImageReportModel, txs: MIOptimizers, cfg,
         state.step += 1
         return state, loss.detach()
 
-    return step_body
+    def step_body(state: MITrainState, batch: dict):
+        device = next(model.parameters()).device
+        emb_img, emb_txt = embed(batch, step_generator(cfg.seed, state.step,
+                                                       device))
+        loss = loss_from_embeddings(state.critic_params, emb_img, emb_txt,
+                                    batch["study_id"])
+        groups = groups_of(state)
+        names = [(gi, n) for gi, g in enumerate(groups) for n in g]
+        flat = [groups[gi][n] for gi, n in names]
+        grads = [{}, {}, {}]
+        # parameters off the loss's path (BERT classifier, ResNet fc1) get
+        # zeros, as JAX hands optax: adamw_hf still decays them
+        for (gi, n), t, g in zip(names, flat, torch.autograd.grad(
+                loss, flat, allow_unused=True)):
+            grads[gi][n] = torch.zeros_like(t) if g is None else g
+        return finish_step(state, loss, groups, grads)
+
+    def grad_cache_body(state: MITrainState, batch: dict):
+        """GradCache (Gao et al. 2021), JAX's grad_cache_body: chunk c
+        draws from ``chunk_generator(seed, step, c)`` in both passes and
+        sees the step's BatchNorm running statistics, which end as the
+        mean of the chunks' updates (a data-parallel replica's semantics)."""
+        size = batch["image"].shape[0]
+        if size % chunks:
+            logger.warning(
+                "grad_cache_chunks=%d does not divide batch %d — falling "
+                "back to the direct (single-pass) step for this batch "
+                "shape", chunks, size)
+            return step_body(state, batch)
+        device = next(model.parameters()).device
+        rows = [slice(c * size // chunks, (c + 1) * size // chunks)
+                for c in range(chunks)]
+        parts = [{k: v[r] for k, v in batch.items()} for r in rows]
+        # a fresh generator per chunk and pass: pass 2 draws pass 1's masks
+        gens = lambda: (chunk_generator(cfg.seed, state.step, c, device)
+                        for c in range(chunks))
+        # _norm updates the running buffers in place where JAX returns new
+        # ones: reset them before each chunk, then set them to the mean
+        stats = list(state.batch_stats.values())
+        start = [t.clone() for t in stats]
+        total = [torch.zeros_like(t) for t in stats]
+
+        # pass 1: embeddings only, no graph kept
+        embs = []
+        with torch.no_grad():
+            for part, gen in zip(parts, gens()):
+                for t, s in zip(stats, start):
+                    t.copy_(s)
+                embs.append(embed(part, gen))
+                for tot, t in zip(total, stats):
+                    tot.add_(t)
+        for t, tot in zip(stats, total):
+            t.copy_(tot / chunks)
+        mean = [t.clone() for t in stats]
+        emb_img = torch.cat([e[0] for e in embs]).requires_grad_()
+        emb_txt = torch.cat([e[1] for e in embs]).requires_grad_()
+        del embs
+
+        # the bound over the whole batch: critic and embedding gradients
+        groups = groups_of(state)
+        loss = loss_from_embeddings(state.critic_params, emb_img, emb_txt,
+                                    batch["study_id"])
+        *critic_g, g_img, g_txt = torch.autograd.grad(
+            loss, [*groups[2].values(), emb_img, emb_txt])
+
+        # pass 2: each chunk's re-forward takes its rows of the embedding
+        # gradients back to the towers' parameters, into one set of buffers
+        tower = [(gi, n, t) for gi in (0, 1) for n, t in groups[gi].items()]
+        acc = [torch.zeros_like(t) for _, _, t in tower]
+        for r, part, gen in zip(rows, parts, gens()):
+            ei, et = embed(part, gen)
+            for t, m in zip(stats, mean):   # pass 1 set the statistics
+                t.copy_(m)
+            for a, g in zip(acc, torch.autograd.grad(
+                    (ei, et), [t for _, _, t in tower],
+                    grad_outputs=(g_img[r].to(ei.dtype),
+                                  g_txt[r].to(et.dtype)),
+                    allow_unused=True)):
+                if g is not None:   # off the path: stays zero, as in JAX
+                    a.add_(g)
+            del ei, et
+        grads = [{}, {}, dict(zip(groups[2], critic_g))]
+        for (gi, n, _), a in zip(tower, acc):
+            grads[gi][n] = a
+        return finish_step(state, loss, groups, grads)
+
+    return grad_cache_body if chunks > 1 else step_body
 
 
 def make_mi_train_step(model: ImageReportModel, txs: MIOptimizers, cfg,

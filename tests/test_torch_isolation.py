@@ -78,7 +78,8 @@ def test_build_all_lists_every_cuda_source(monkeypatch, tmp_path):
     csrc = os.path.join(REPO, "mimm_tpu_torch", "csrc")
     want = sorted(os.path.basename(p)[:-3]
                   for p in glob.glob(os.path.join(csrc, "*.cu")))
-    assert want == ["flash_attention_bwd", "flash_attention_fwd"]
+    assert want == ["flash_attention_bwd", "flash_attention_fwd",
+                    "pairwise_critic_bwd", "pairwise_critic_fwd"]
     monkeypatch.setattr(_build, "build", lambda name: f"lib{name}.so")
     assert sorted(_build.build_all()) == want
 

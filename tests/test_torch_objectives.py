@@ -195,10 +195,16 @@ def test_matrix_loss_equals_reference_pair_loop(results, estimator):
 
 
 def test_critic_dispatch_raises_past_the_switch(results):
+    """Past JAX's 8 GiB switch the dispatch selects the kernels (raising
+    only where JAX does): at H1 = 1024 the factorized path takes 1448²
+    pairs (8,588 MB) and the kernels 1449², ``force_kernel`` always
+    selects them (the plain versions on the CPU, equal to the factorized
+    path), a 2-layer critic with ``force_kernel`` raises ValueError, and
+    ``axis_name`` raises until the parallel slice."""
     meta = results[2]
-    assert meta["force_kernel"].startswith("NotImplementedError")
-    assert meta["past_switch"].startswith("NotImplementedError")
-    assert "GradCache" in meta["past_switch"]
+    assert meta["switch"] == {"1448": False, "1449": True, "forced": True}
+    assert meta["force_kernel"] == "no error"
+    assert meta["force_kernel_err"] <= 1e-5
     assert meta["two_layer_force"].startswith("ValueError")
     assert meta["axis_name"].startswith("NotImplementedError")
 
@@ -275,11 +281,13 @@ def _child(job):
             critic, ei, et, sid, estimator=est).numpy()
     meta["force_kernel"] = _error_of(lambda: pc.pairwise_critic_scores_pallas(
         critic, ei, et, force_kernel=True))
-    wide = [{"w": torch.zeros(1, 1 << 20), "b": torch.zeros(1 << 20)}] \
-        + critic[1:]
-    big = torch.zeros(1100, 0)   # 1100² pairs x 2^20 x 4 B > 8 GiB
-    meta["past_switch"] = _error_of(
-        lambda: pc.pairwise_critic_scores_pallas(wide, big, big))
+    forced = pc.pairwise_critic_scores_pallas(critic, ei, et,
+                                              force_kernel=True)
+    meta["force_kernel_err"] = (forced.double() - torch.from_numpy(
+        out["pair_scores"])).abs().max().item()
+    meta["switch"] = {"1448": pc.uses_kernel(1448, 1448, 1024),
+                      "1449": pc.uses_kernel(1449, 1449, 1024),
+                      "forced": pc.uses_kernel(2, 2, 1024, force_kernel=True)}
     meta["two_layer_force"] = _error_of(lambda: pc.pairwise_critic_scores_pallas(
         critic[1:], ei, et, force_kernel=True))
     meta["axis_name"] = _error_of(lambda: pairing.mi_loss_from_embeddings(

@@ -296,8 +296,7 @@ def test_production_f32_flash_step_matches_jax(results):
 
 def test_unported_knobs_raise(results):
     meta = results[2]
-    for knob in ("grad_cache_chunks", "zero1_optimizer_sharding", "mesh",
-                 "remat", "pallas_stem"):
+    for knob in ("zero1_optimizer_sharding", "mesh", "pallas_stem"):
         assert meta["raises"][knob].startswith("NotImplementedError"), knob
 
 
@@ -319,7 +318,6 @@ def _error_of(fn):
 
 def _child(job):
     import copy
-    import dataclasses
 
     import torch
 
@@ -417,16 +415,10 @@ def _child(job):
     out.update(_port_keyed(state, "final/"))
 
     meta["raises"] = {
-        "grad_cache_chunks": _error_of(lambda: mi.make_mi_train_step(
-            model, txs, cfg.replace(grad_cache_chunks=2))),
         "zero1_optimizer_sharding": _error_of(lambda: mi.make_mi_train_step(
             model, txs, cfg.replace(zero1_optimizer_sharding=True))),
         "mesh": _error_of(lambda: mi.make_mi_train_step(model, txs, cfg,
                                                         mesh=object())),
-        "remat": _error_of(lambda: mi.build_joint_model(
-            cfg, dataclasses.replace(BertConfig(**BERT), remat=True),
-            device="cpu").text_model(b0["txt_ids"], deterministic=False,
-                                     generator=torch.Generator())),
         "pallas_stem": _error_of(lambda: mi.build_joint_model(
             cfg.replace(pallas_stem=True), BertConfig(**BERT), device="cpu")),
     }
