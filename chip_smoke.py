@@ -17,14 +17,18 @@ no arguments.  Phases:
    gradients) at (20, 12), (300, 257) and the GradCache step's 2048 x 2048
    pairs, with the reference critic's widths; the four fused FFN kernels
    in float32 and bfloat16 at (T, d, f) = (20480, 768, 3072), at a ragged
-   T and at a small shape;
+   T and at a small shape; the three shallow-conv stem kernels (forward,
+   dW, dx) in float32 and bfloat16 at (B, H, W) = (64, 256, 256), a ragged
+   (3, 257, 131) and (2, 16, 16);
 3. each kernel's time beside its plain version's and its bound: the flash
    kernels at (64, 12, 320, 64) with one PyTorch library call's
    (``scaled_dot_product_attention`` forward, or its backward alone: a
    yardstick the port never calls), the critic kernels at 2048 x 2048
    pairs with the factorized path (plain PyTorch and cuBLAS) as yardstick,
    the fused FFN kernels at (20480, 768, 3072) with the unfused path
-   (``F.linear``, ``F.gelu``, ``F.linear`` and autograd through them);
+   (``F.linear``, ``F.gelu``, ``F.linear`` and autograd through them), the
+   stem kernels at (64, 256, 256) with one cuDNN call each (``F.conv2d``,
+   ``torch.nn.grad.conv2d_weight``, ``torch.nn.grad.conv2d_input``);
 4. the serving path through its entry point, the HTTP server of
    ``mimm_tpu_torch.cli.serve``, at full width: ResNet256_6_2_1, a 12-layer
    BERT-base TextBert with the flash gate open, and the Pneumonia
@@ -62,7 +66,26 @@ no arguments.  Phases:
    a step) beside the flag-off steps of phase 5; one float32 L=320 step at
    dropout 0 with the flag on against off; two steps with and without
    remat (24 forward launches a step with it);
-10. the ``kernels`` JSON line, the card line, and as the last line
+10. ``TrainingConfig.production(pallas_stem=True)`` on the training path
+   at full width: one warm-up and 3 timed steps at L=128 and L=320 beside
+   phase 5's (one forward and one dW launch a step, no dx); the L=320 step
+   with the stem on and off in turns within the phase, and one step of
+   each under torch.profiler (device busy, the kernels that differ); one
+   f32 L=320 step at dropout 0 with the stem on against off, and with the
+   stem's plain versions against both (the witness of the stem's limit on
+   the share of image-tower weights that move), a GradCache step of
+   B=256 in 4 chunks (8 forward and 4 dW launches), the bf16 image tower
+   alone (forward + backward, B=64) with the kernel stem against the cuDNN
+   stem in device ms, and one f32 tower call whose image requires a
+   gradient (dx once, held against the cuDNN stem's image gradient);
+11. ``MultiModalManager.train`` over 1024 in-memory compact pairs whose
+   report lengths follow the bucket mix: one epoch, B=64, ``scan_steps``
+   8, ``prefetch`` 2, 4 loader threads, ``pallas_stem``: steps against
+   ``batches_per_epoch()``, epoch seconds and pairs/s from mi.jsonl, peak
+   memory, one forward and one dW launch a step, a finite epoch loss, a
+   strict reload of the written ``.bin`` files, and the device's busy time
+   over the same run again under torch.profiler;
+12. the ``kernels`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a card it exits before
@@ -72,6 +95,7 @@ printing any result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import io
 import json
 import math
@@ -107,6 +131,7 @@ from mimm_tpu_torch.ops import _build  # noqa: E402
 from mimm_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from mimm_tpu_torch.ops import fused_ffn as ff  # noqa: E402
 from mimm_tpu_torch.ops import pairwise_critic as pc  # noqa: E402
+from mimm_tpu_torch.ops import shallow_conv as sc  # noqa: E402
 from mimm_tpu_torch.ops.image_norm import device_normalize  # noqa: E402
 from mimm_tpu_torch.ops.philox import attention_keep_mask  # noqa: E402
 from mimm_tpu_torch.serve import InferenceSession  # noqa: E402
@@ -167,6 +192,15 @@ TIMED_STEPS = 3
 STEP_LOSS_ATOL = 1e-5
 STEP_MAX_ABS = 2.5 * TrainingConfig().init_lr
 STEP_FLIP_SHARE = 1e-3
+# The kernel stem against cuDNN's changes the image tower's first layer, so
+# every image-tower gradient carries its f32 noise (with flash or the fused
+# FFN, only what reaches the image tower through the loss): more elements
+# lie within that noise of zero and flip their first Adam step.  Each flip
+# is still one step (max |Δ| <= STEP_MAX_ABS).  Measured on an NVIDIA H100
+# 80GB HBM3 at 700 W: 1.67e-3 of the image tower's elements, and the same
+# 1.67e-3 for the stem's plain versions against cuDNN's (compare_step's
+# third arm), while the kernel stem against the plain one moves 9.8e-6.
+STEM_FLIP_SHARE = 5e-3
 # the pairwise critic kernels: (B_img, B_txt) shapes of the check, the
 # last the GradCache step's; H1, H2 of the reference critic
 CRITIC_SHAPES = ((20, 12), (300, 257), (2048, 2048))
@@ -220,6 +254,22 @@ FFN_SRC = {
     "bwd_b2": ("mimm_tpu_torch/csrc/fused_ffn_bwd.cu",
                "mimm_tpu/ops/fused_ffn.py:120")}
 FFN_TIMED = 5              # ~10 ms a launch at FFN_SHAPE
+# the shallow-conv stem kernels: (B, H, W) of the check: the train step's
+# batch of 256² images, a ragged shape (H, W no multiple of the 16 x 64
+# tiles), and a small one; the time at the first
+STEM_SHAPES = ((BATCH, 256, 256), (3, 257, 131), (2, 16, 16))
+# kernel against plain version on the same inputs, max |got − want| over
+# max |want|.  The forward and dx kernels round each product and each
+# running sum as the plain versions do, in their order, so they should agree
+# to the bit: 1e-6 in float32, one bf16 ulp (2^-8 = 3.9e-3) in bfloat16.
+# dW sums B·H·W = 4.2 M products per weight in another order than the plain
+# version's torch.sum: 1e-5.
+STEM_TOL = {torch.float32: {"fwd": 1e-6, "dw": 1e-5, "dx": 1e-6},
+            torch.bfloat16: {"fwd": 2.0 ** -8, "dw": 1e-5, "dx": 2.0 ** -8}}
+STEM_SRC = {kind: ("mimm_tpu_torch/csrc/shallow_conv.cu",
+                   f"mimm_tpu/ops/shallow_conv.py:{line}")
+            for kind, line in (("fwd", 54), ("dw", 73), ("dx", 99))}
+STEM_TIMED = 20            # tens of microseconds a launch
 
 
 def card_line() -> str:
@@ -465,12 +515,61 @@ def check_ffn(device, shapes=FFN_SHAPES) -> dict:
     return worst
 
 
+def stem_inputs(b, h, w, dtype, gen, device):
+    """(x (B, H, W, 1), weight (8, 1, 3, 3) float32, dy (B, 8, H, W)): a
+    normalized 8-bit image in ``dtype`` (the stem's input after the cast to
+    the compute dtype), He-normal weights, a unit-scale cotangent."""
+    x = torch.randint(0, 256, (b, h, w, 1), generator=gen, device=device)
+    weight = torch.randn(8, 1, 3, 3, generator=gen, device=device) \
+        * math.sqrt(2.0 / 72)
+    dy = torch.randn(b, 8, h, w, generator=gen, device=device)
+    return (x.float() / 255).to(dtype), weight, dy.to(dtype)
+
+
+def check_stem(device, shapes=STEM_SHAPES) -> dict:
+    """The three shallow-conv kernels against their plain versions on the
+    same inputs, per shape and dtype; raises past STEM_TOL.  Returns the
+    largest max abs error per (kernel name, dtype)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    worst = {(n, dt): 0.0 for n in sc.KERNELS.values() for dt in DTYPES}
+    for b, h, w in shapes:
+        for dt in DTYPES:
+            x, weight, dy = stem_inputs(b, h, w, dt, gen, device)
+            want = {"fwd": sc.fwd_plain(x, weight, dt),
+                    "dw": sc.dw_plain(x, dy),
+                    "dx": sc.dx_plain(dy, weight, dt)}
+            _sync(device)
+            got = {"fwd": sc.fwd(x, weight, dt), "dw": sc.dw(x, dy, weight),
+                   "dx": sc.dx(dy, weight, dt)}
+            _sync(device)
+            errs = {}
+            for kind, a in got.items():
+                b_ = want[kind]
+                same = a.shape == b_.shape and a.dtype == b_.dtype
+                errs[kind] = _scaled_err(a, b_) if same else math.inf
+                key = sc.KERNELS[kind], dt
+                worst[key] = max(worst[key], (a.float() - b_.float()).abs()
+                                 .max().item() if same else math.inf)
+            exact = {k: bool(torch.equal(got[k], want[k]))
+                     for k in ("fwd", "dx")}
+            print(f"  shallow_conv {(b, h, w)} {dt}: scaled max err "
+                  + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+                  + f" (tol {STEM_TOL[dt]}); bit-equal {exact}")
+            bad = [k for k, e in errs.items() if not e <= STEM_TOL[dt][k]]
+            if bad:
+                raise AssertionError(f"shallow conv kernels disagree with "
+                                     f"their plain versions at {(b, h, w)} "
+                                     f"{dt}: {bad} {errs}")
+            del got, want, x, dy
+    return worst
+
+
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
 
 
-# ---- phase 3: timing ---------------------------------------------------------
+# ---- phase 3: timing --------------------------------------------------------
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     """Mean ms of ``fn`` over ``iters`` back-to-back launches, CUDA events."""
@@ -485,6 +584,25 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device ms of ``fn``: the CUDA kernels' and copies' own time
+    under torch.profiler over ``iters`` calls, divided by ``iters``.  For
+    work of tens of microseconds, where back-to-back calls timed by CUDA
+    events also take in the host's time between launches."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy / 1e3 / iters
 
 
 def attention_bound(shape, dtype, kind="fwd"):
@@ -731,7 +849,72 @@ def time_ffn(shape=FFN_SHAPE) -> dict:
     return out
 
 
-# ---- phase 4: the serving path through HTTP ----------------------------------
+def stem_bounds(b, h, w, dtype) -> dict:
+    """{kind: (ms, 'bytes' | 'operations')}: 72 multiply-adds a pixel
+    (2·B·H·W·8·9 FLOP) at the dtype's peak, against each input read and
+    each output written once: the forward x and y, dW x and dy (and the 72
+    float32 sums), dx dy and dx; x and dx in ``dtype`` as on the training
+    path, where the image is cast to the compute dtype first."""
+    e = torch.empty((), dtype=dtype).element_size()
+    pixels = b * h * w
+    t_ops = 2 * pixels * 72 / PEAK_FLOP_PER_S[dtype]
+    moved = {"fwd": e * pixels * 9, "dw": e * pixels * 9 + 4 * 72,
+             "dx": e * pixels * 9}
+    return {kind: (max(t_ops, n / HBM_BYTES_PER_S) * 1e3,
+                   "operations" if t_ops >= n / HBM_BYTES_PER_S else "bytes")
+            for kind, n in moved.items()}
+
+
+def time_stem(shape=STEM_SHAPES[0]) -> dict:
+    """{(kind, dtype): times} of each shallow-conv kernel at the train
+    step's shape, beside its plain version, its bound and one cuDNN call
+    computing the same function (``F.conv2d``,
+    ``torch.nn.grad.conv2d_weight``, ``torch.nn.grad.conv2d_input``, with
+    TF32 off as ``main`` sets it).  In bfloat16 cuDNN takes the weight in
+    bfloat16: the same operation with one rounding more.  Each time is the
+    device's (``device_ms``, STEM_TIMED calls); ``ms_events`` is the
+    kernel's wrapper called back to back under CUDA events, the host's time
+    between launches included."""
+    card = card_line()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    out = {}
+    for dt in DTYPES:
+        x, weight, dy = stem_inputs(*shape, dt, gen, "cuda")
+        xc = x.permute(0, 3, 1, 2)          # (B, 1, H, W), the same memory
+        wc = weight.to(dt)
+        calls = {
+            "fwd": (lambda: sc.fwd(x, weight, dt),
+                    lambda: sc.fwd_plain(x, weight, dt),
+                    lambda: F.conv2d(xc, wc, padding=1)),
+            "dw": (lambda: sc.dw(x, dy, weight), lambda: sc.dw_plain(x, dy),
+                   lambda: torch.nn.grad.conv2d_weight(xc, wc.shape, dy,
+                                                       padding=1)),
+            "dx": (lambda: sc.dx(dy, weight, dt),
+                   lambda: sc.dx_plain(dy, weight, dt),
+                   lambda: torch.nn.grad.conv2d_input(xc.shape, wc, dy,
+                                                      padding=1))}
+        bounds = stem_bounds(*shape, dt)
+        for kind, (kernel, plain, library) in calls.items():
+            ms = device_ms(kernel, iters=STEM_TIMED)
+            ms_events = time_ms(kernel, iters=STEM_TIMED)
+            plain_ms = device_ms(plain, iters=3, warmup=1)
+            library_ms = device_ms(library, iters=STEM_TIMED)
+            bound_ms, bound_by = bounds[kind]
+            out[kind, dt] = dict(ms=ms, plain_ms=plain_ms,
+                                 library_ms=library_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by, ms_events=ms_events)
+            print(f"  {sc.KERNELS[kind]} {shape} {dt}: kernel {ms:.4f} ms "
+                  f"(device; {ms_events:.4f} ms back to back under CUDA "
+                  f"events), plain {plain_ms:.4f} ms, cuDNN "
+                  f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+                  f"kernel at {100 * bound_ms / ms:.1f}% of the bound  "
+                  f"[{card}]")
+        del x, dy, xc
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---- phase 4: the serving path through HTTP ---------------------------------
 
 def random_state_dict(model, gen, std_2d=None) -> dict:
     """Seeded random weights in ``model``'s reference layout: He-normal
@@ -1013,7 +1196,7 @@ def drive_serving(root: str, device, bert_kw=BERT_BASE, batch=BATCH,
             "config": BertConfig(**bert_kw), "data": data}
 
 
-# ---- phase 5: the MI train step at full width ---------------------------------
+# ---- phase 5: the MI train step at full width -------------------------------
 
 # what load_bert_config gives the production preset on BERT-base
 TRAIN_BERT = dict(BERT_BASE, gelu_tanh=True, u8_dropout=True)
@@ -1044,43 +1227,93 @@ def _snapshot(state) -> dict:
             for g, d in groups.items()}
 
 
+@contextlib.contextmanager
+def plain_stem():
+    """The stem's plain versions (JAX's nine shifted products in PyTorch) in
+    place of its forward and dW kernels, on CUDA tensors too."""
+    kernels = sc.fwd_kernel, sc.dw_kernel
+    sc.fwd_kernel, sc.dw_kernel = sc.fwd_plain, sc.dw_plain
+    try:
+        yield
+    finally:
+        sc.fwd_kernel, sc.dw_kernel = kernels
+
+
+def _step_diff(a, b) -> dict:
+    """|Δloss| and, per group, (max |Δ|, share > 1e-6) of two step runs."""
+    (l_a, p_a), (l_b, p_b) = a, b
+    out = {"loss_diff": abs(l_a - l_b), "loss": (l_a, l_b)}
+    for g in p_a:
+        d = torch.cat([(p_a[g][n] - p_b[g][n]).abs().reshape(-1)
+                       for n in p_a[g]])
+        out[g] = (d.max().item(), (d > 1e-6).float().mean().item())
+    return out
+
+
+def _held(out: dict, flip_share: float) -> bool:
+    return out["loss_diff"] <= STEP_LOSS_ATOL and all(
+        v[0] <= STEP_MAX_ABS and v[1] <= flip_share
+        for g, v in out.items() if g not in ("loss_diff", "loss"))
+
+
+def _diff_line(out: dict) -> str:
+    return (f"loss {out['loss'][0]:.9e} vs {out['loss'][1]:.9e} (|diff| "
+            f"{out['loss_diff']:.2e}); max |dparam|, share > 1e-6: "
+            + ", ".join(f"{g} {v[0]:.2e}, {v[1]:.2e}" for g, v in out.items()
+                        if g not in ("loss_diff", "loss")))
+
+
 def compare_step(device, bert_kw, batch: int, seq: int,
-                       knob: str = "flash_attention") -> dict:
+                 knob: str = "flash_attention") -> dict:
     """One float32 step at dropout 0 from one state, with ``knob`` on (the
-    flash kernels, or with ``fused_ffn`` the fused FFN kernels) and off
-    (the plain attention path, or the unfused FFN); returns the loss
-    difference and per group (max |Δ|, share > 1e-6)."""
-    cfg = TrainingConfig.production(compute_dtype="float32")
+    flash kernels, with ``fused_ffn`` the fused FFN kernels, with the
+    TrainingConfig knob ``pallas_stem`` the shallow-conv kernels) and off
+    (the plain attention path, the unfused FFN, the cuDNN stem); returns the
+    loss difference and per group (max |Δ|, share > 1e-6).  With
+    ``pallas_stem`` a third step runs the stem's plain versions: the kernel
+    step is held against it under phase 5's limits, and it against the
+    cuDNN step under the stem's (the witness of STEM_FLIP_SHARE)."""
     data = compact_batch(np.random.default_rng(SEED + 2), batch, seq,
                          bert_kw["vocab_size"], device)
     runs = {}
-    for flash in (True, False):
-        bc = BertConfig(**{**bert_kw, knob: flash, "hidden_dropout_prob": 0.0,
+    on_cfg = knob == "pallas_stem"          # the others are BertConfig's
+    flip_share = STEM_FLIP_SHARE if on_cfg else STEP_FLIP_SHARE
+    arms = (("on", True), ("off", False)) + ((("plain", True),) if on_cfg
+                                             else ())
+    for arm, flag in arms:
+        cfg = TrainingConfig.production(compute_dtype="float32",
+                                        **({knob: flag} if on_cfg else {}))
+        bc = BertConfig(**{**bert_kw, **({} if on_cfg else {knob: flag}),
+                           "hidden_dropout_prob": 0.0,
                            "attention_probs_dropout_prob": 0.0})
         model = mi.build_joint_model(cfg, bc, device=device)
         txs = mi.make_optimizers(cfg, steps_per_epoch=200_000 // batch)
         state = mi.create_mi_state(model, cfg, txs,
                                    torch.Generator().manual_seed(SEED + 3))
-        state, loss = mi.make_mi_train_step(model, txs, cfg)(state, data)
-        runs[flash] = (loss.item(), _snapshot(state))
+        with plain_stem() if arm == "plain" else contextlib.nullcontext():
+            state, loss = mi.make_mi_train_step(model, txs, cfg)(state, data)
+            runs[arm] = (loss.item(), _snapshot(state))
         del model, state
         if torch.device(device).type == "cuda":
             torch.cuda.empty_cache()
-    (l_k, a), (l_p, b) = runs[True], runs[False]
-    out = {"loss_diff": abs(l_k - l_p), "loss": (l_k, l_p)}
-    for g in a:
-        d = torch.cat([(a[g][n] - b[g][n]).abs().reshape(-1) for n in a[g]])
-        out[g] = (d.max().item(), (d > 1e-6).float().mean().item())
-    print(f"  f32 L={seq} step, {knob} on vs off, dropout 0:"
-          f" loss {l_k:.9e} vs {l_p:.9e} (|diff| {out['loss_diff']:.2e}, tol "
-          f"{STEP_LOSS_ATOL:.0e}); max |dparam|, share > 1e-6: "
-          + ", ".join(f"{g} {out[g][0]:.2e}, {out[g][1]:.2e}" for g in a)
-          + f" (tol {STEP_MAX_ABS:.1e}, {STEP_FLIP_SHARE:.0e})")
-    if not out["loss_diff"] <= STEP_LOSS_ATOL or not all(
-            out[g][0] <= STEP_MAX_ABS and out[g][1] <= STEP_FLIP_SHARE
-            for g in a):
+    out = _step_diff(runs["on"], runs["off"])
+    print(f"  f32 L={seq} step, {knob} on vs off, dropout 0: {_diff_line(out)}"
+          f" (tol {STEP_LOSS_ATOL:.0e}; {STEP_MAX_ABS:.1e}, {flip_share:.0e})")
+    if not _held(out, flip_share):
         raise AssertionError(f"train steps with {knob} on and off disagree: "
                              f"{out}")
+    if on_cfg:
+        out["kernel_vs_plain"] = _step_diff(runs["on"], runs["plain"])
+        out["plain_vs_off"] = _step_diff(runs["plain"], runs["off"])
+        print(f"  the same step with the stem's plain versions: the kernel "
+              f"stem against it {_diff_line(out['kernel_vs_plain'])} (tol "
+              f"{STEP_LOSS_ATOL:.0e}; {STEP_MAX_ABS:.1e}, "
+              f"{STEP_FLIP_SHARE:.0e}); it against the cuDNN stem "
+              f"{_diff_line(out['plain_vs_off'])} (tol {flip_share:.0e})")
+        if not (_held(out["kernel_vs_plain"], STEP_FLIP_SHARE)
+                and _held(out["plain_vs_off"], flip_share)):
+            raise AssertionError(f"the stem's plain-version step disagrees: "
+                                 f"{out}")
     return out
 
 
@@ -1180,11 +1413,12 @@ def drive_training(root: str, device, bert_kw=TRAIN_BERT, batch=BATCH,
             "peak": peak}
 
 
-# ---- phase 6: where the device time goes ---------------------------------------
+# ---- phase 6: where the device time goes ------------------------------------
 
-def profile_call(title: str, call, wall_ms: float, card: str) -> None:
+def profile_call(title: str, call, wall_ms: float, card: str) -> dict:
     """Kernel time by name over one call of ``call`` under torch.profiler,
-    and the device idle share against ``wall_ms``."""
+    and the device idle share against ``wall_ms``; returns the busy ms and
+    {kernel: (ms, launches)}."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -1203,6 +1437,7 @@ def profile_call(title: str, call, wall_ms: float, card: str) -> None:
     for ms, key, count in sorted(rows, reverse=True)[:8]:
         print(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{count:<4d}"
               f" {key[:90]}")
+    return {"busy": busy, "rows": {key: (ms, count) for ms, key, count in rows}}
 
 
 def profile_batches(save: str, config, data) -> None:
@@ -1234,7 +1469,7 @@ def profile_train_steps(train: dict) -> None:
                      train["ms"][seq], card_line())
 
 
-# ---- phase 7: GradCache at full width ------------------------------------------
+# ---- phase 7: GradCache at full width ---------------------------------------
 
 # (batch, grad_cache_chunks) at L=128, as tools/bench_grad_cache.py drives
 # JAX: chunks of 64; 256 is under the critic's 8 GiB switch, 2048 past it
@@ -1357,7 +1592,7 @@ def drive_grad_cache(device, bert_kw=TRAIN_BERT, configs=GC_CONFIGS,
     return out
 
 
-# ---- phase 8: BERT remat ---------------------------------------------------------
+# ---- phase 8: BERT remat ----------------------------------------------------
 
 REMAT_STEPS = 2     # the text tower's first AdamW update is 0 (warmup)
 
@@ -1436,7 +1671,7 @@ def drive_remat(device, bert_kw=TRAIN_BERT, batch=BATCH, seq=SEQ) -> dict:
     return out
 
 
-# ---- phase 9: the fused_ffn configuration on both paths -----------------------------
+# ---- phase 9: the fused_ffn configuration on both paths ---------------------
 
 FFN_SERVE_BERT = dict(BERT_BASE, gelu_tanh=True, fused_ffn=True)
 FFN_TRAIN_BERT = dict(TRAIN_BERT, fused_ffn=True)
@@ -1552,7 +1787,383 @@ def drive_fused_ffn(root: str, device, serve_kw=FFN_SERVE_BERT,
             "cmp": step_cmp}
 
 
-# ---- main ----------------------------------------------------------------------
+# ---- phase 10: the pallas_stem configuration on the training path -----------
+
+STEM_BUCKETS = FFN_BUCKETS
+STEM_GC = (256, 4)           # GradCache (batch, chunks) at GC_SEQ
+TOWER_TIMED = 10
+# the image's gradient of an f32 eval tower call with the kernel stem,
+# against cuDNN's stem input gradient (``conv2d_input``) on the same
+# cotangent of the stem's output, max |Δ| over max |reference|: 72 f32
+# products a pixel in another order
+TOWER_DX_TOL = 1e-5
+
+
+def _stem_counts() -> list:
+    return [sc.LAUNCHES[sc.KERNELS[k]] for k in ("fwd", "dw", "dx")]
+
+
+def tower_step_ms(pallas_stem: bool, batch: int, device) -> tuple:
+    """(device ms, events ms) of one bf16 image-tower forward + backward in
+    train mode, the H100 counterpart of tools/bench_image_tower.py's step
+    without its optimizer: the device's own time (``device_ms``) and CUDA
+    events over TOWER_TIMED steps after 3 (the host's gaps included)."""
+    net = ResNet256_6_2_1(dtype=torch.bfloat16, pallas_stem=pallas_stem)
+    net.load_state_dict(random_state_dict(
+        net, torch.Generator().manual_seed(SEED + 16)), strict=True)
+    net.to(device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 17)
+    x = device_normalize(torch.randint(0, 256, (batch, 256, 256, 1),
+                                       generator=gen, device=device,
+                                       dtype=torch.uint8))
+    params = list(net.parameters())
+
+    def step():     # fc1 is off the embedding's path
+        torch.autograd.grad(net(x, train=True)[1].float().sum(), params,
+                            allow_unused=True)
+
+    return (device_ms(step, iters=TOWER_TIMED),
+            time_ms(step, iters=TOWER_TIMED, warmup=3))
+
+
+def tower_input_grad(device, batch: int) -> dict:
+    """One float32 eval-mode tower call with the kernel stem whose image
+    requires a gradient: dx launches once, and the image gradient it gives
+    is held against cuDNN's stem input gradient on the cotangent that
+    reached the stem's output (caught by a hook).  The whole tower's image
+    gradient with the cuDNN stem is printed beside it: there the two
+    forwards differ in f32 rounding, which can flip a ReLU."""
+    from mimm_tpu_torch.models import resnet
+
+    sd = random_state_dict(ResNet256_6_2_1(),
+                           torch.Generator().manual_seed(SEED + 18))
+    gen = torch.Generator(device=device).manual_seed(SEED + 19)
+    x = torch.rand(batch, 256, 256, 1, generator=gen, device=device)
+    stem_dy, real = [], resnet.shallow_conv3x3
+
+    def hooked(*args):
+        y = real(*args)
+        y.register_hook(stem_dy.append)
+        return y
+
+    grads = {}
+    for stem in (True, False):
+        net = ResNet256_6_2_1(pallas_stem=stem)
+        net.load_state_dict(sd, strict=True)
+        net.to(device)
+        xg = x.clone().requires_grad_()
+        resnet.shallow_conv3x3 = hooked
+        try:
+            z = net(xg)[1]
+        finally:
+            resnet.shallow_conv3x3 = real
+        before = _stem_counts()
+        grads[stem] = torch.autograd.grad((z * z).sum(), xg)[0]
+        _sync(device)
+        if stem:
+            launched = [a - b for a, b in zip(_stem_counts(), before)]
+            weight = net.conv1.weight.detach()
+    (dy,) = stem_dy
+    want = torch.nn.grad.conv2d_input(
+        (batch, 1, 256, 256), weight, dy, padding=1).reshape(x.shape)
+    err = _scaled_err(grads[True], want)
+    diff = grads[True] - grads[False]
+    tower = {"max": _scaled_err(grads[True], grads[False]),
+             "rel_l2": (diff.norm() / grads[False].norm()).item()}
+    cuda = torch.device(device).type == "cuda"
+    print(f"  tower input gradient, f32 eval, B={batch}: kernel stem's dx "
+          f"against cuDNN's conv2d_input on the same cotangent, scaled max "
+          f"err {err:.2e} (tol {TOWER_DX_TOL:.0e}); stem backward launches "
+          f"(fwd, dw, dx) {launched}; whole tower, kernel stem against cuDNN "
+          f"stem: scaled max err {tower['max']:.2e}, relative L2 "
+          f"{tower['rel_l2']:.2e}  [{card_line() if cuda else 'cpu'}]")
+    if not err <= TOWER_DX_TOL or (cuda and launched != [0, 1, 1]):
+        raise AssertionError(f"tower input gradient: err {err}, launches "
+                             f"{launched} (want 0 fwd, 1 dw, 1 dx)")
+    return {"err": err, "tower": tower}
+
+
+STEM_TURNS = ("off", "on", "on", "off")
+
+
+def stem_in_turns(device, bc, batch: int, seq: int, rng, card: str) -> dict:
+    """The production step at ``seq`` with the stem on and off in one
+    phase: a state for each, one warm-up step each, then TIMED_STEPS steps
+    of one arm after the other in STEM_TURNS on the same batch (host
+    clock); on the card, one step of each under torch.profiler, and the
+    kernels whose launches or device time differ between the two."""
+    cuda = torch.device(device).type == "cuda"
+    data = compact_batch(rng, batch, seq, bc.vocab_size, device)
+    stacked = {k: torch.stack([v] * TIMED_STEPS) for k, v in data.items()}
+    arms = {}
+    for arm in ("on", "off"):
+        cfg = TrainingConfig.production(pallas_stem=arm == "on")
+        model = mi.build_joint_model(cfg, bc, device=device)
+        txs = mi.make_optimizers(cfg, steps_per_epoch=200_000 // batch)
+        state = mi.create_mi_state(model, cfg, txs,
+                                   torch.Generator().manual_seed(SEED))
+        step = mi.make_mi_train_step(model, txs, cfg)
+        state, _ = step(state, data)                        # warm-up
+        arms[arm] = [state, step, mi.make_mi_multi_step(model, txs, cfg)]
+    ms = {"on": [], "off": []}
+    for arm in STEM_TURNS:
+        state, _, multi = arms[arm]
+        _sync(device)
+        t0 = time.perf_counter()
+        arms[arm][0], _ = multi(state, stacked)
+        _sync(device)
+        ms[arm].append((time.perf_counter() - t0) / TIMED_STEPS * 1e3)
+    print(f"  L={seq}, stem on and off in turns {STEM_TURNS}, ms/step over "
+          f"{TIMED_STEPS} steps each (host clock): on "
+          f"{[round(t, 3) for t in ms['on']]}, off "
+          f"{[round(t, 3) for t in ms['off']]}  [{card}]")
+    busy = {}
+    if cuda:
+        prof = {}
+        for arm in ("on", "off"):
+            state, step, _ = arms[arm]
+            prof[arm] = profile_call(
+                f"MI train step bf16 L={seq} (B={batch}), stem {arm}, the "
+                f"median ms/step of the turns above",
+                lambda: step(state, data), statistics.median(ms[arm]), card)
+            busy[arm] = prof[arm]["busy"]
+        on, off = prof["on"]["rows"], prof["off"]["rows"]
+        diff = sorted(((on.get(k, (0, 0))[0] - off.get(k, (0, 0))[0],
+                        on.get(k, (0, 0))[1] - off.get(k, (0, 0))[1], k)
+                       for k in set(on) | set(off)),
+                      key=lambda r: -abs(r[0]))
+        total = {arm: sum(c for _, c in prof[arm]["rows"].values())
+                 for arm in prof}
+        print(f"    kernels launched in one step: on {total['on']}, off "
+              f"{total['off']}; the kernels that differ most, stem on minus "
+              f"off (device ms, launches):")
+        for d_ms, d_n, key in [r for r in diff if r[0] or r[1]][:8]:
+            print(f"    {d_ms:+9.3f} ms {d_n:+5d}  {key[:90]}")
+    return {"ms": ms, "busy": busy}
+
+
+def drive_pallas_stem(device, bert_kw=TRAIN_BERT, batch=BATCH,
+                      buckets=STEM_BUCKETS, gc=STEM_GC, gc_seq=GC_SEQ,
+                      cmp_seq=SEQ, tower_batch=BATCH, off=None) -> dict:
+    """``TrainingConfig.production(pallas_stem=True)`` at full width: one
+    warm-up and TIMED_STEPS timed steps per bucket (one forward and one dW
+    launch a step, no dx: the image is data), beside the flag-off steps of
+    phase 5 (``off``: {"ms": {seq: ms}, "peak": {seq: bytes}}); the last
+    bucket's step with the stem on and off in turns (``stem_in_turns``);
+    one f32 step at dropout 0, stem on against off from one state, under
+    phase 5's limits, with the plain-version witness; GradCache with the stem on (2 forward launches a chunk, one
+    dW); the image tower alone, kernel stem against cuDNN stem, in device
+    ms; and one tower call with an image that requires a gradient, the one
+    place dx runs.  Returns the launches of the training path and of the
+    input-gradient call, and the times."""
+    cuda = torch.device(device).type == "cuda"
+    card = card_line() if cuda else "cpu"
+    off = off or {"ms": {}, "peak": {}}
+    names = [sc.KERNELS[k] for k in ("fwd", "dw", "dx")]
+    cfg = TrainingConfig.production(pallas_stem=True)
+    bc = BertConfig(**bert_kw)
+    model = mi.build_joint_model(cfg, bc, device=device)
+    txs = mi.make_optimizers(cfg, steps_per_epoch=200_000 // batch)
+    state = mi.create_mi_state(model, cfg, txs,
+                               torch.Generator().manual_seed(SEED))
+    train_step = mi.make_mi_train_step(model, txs, cfg)
+    multi_step = mi.make_mi_multi_step(model, txs, cfg)
+    rng = np.random.default_rng(SEED + 20)
+    ms, peak, losses = {}, {}, []
+    sc.reset_launch_counts()            # the stem's training path starts here
+    for length in buckets:
+        data = compact_batch(rng, batch, length, bc.vocab_size, device)
+        state, loss = train_step(state, data)               # warm-up
+        losses.append(loss[None])
+        stacked = {k: torch.stack([v] * TIMED_STEPS) for k, v in data.items()}
+        _sync(device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        before = _stem_counts()
+        t0 = time.perf_counter()
+        state, step_losses = multi_step(state, stacked)
+        _sync(device)
+        ms[length] = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+        losses.append(step_losses)
+        per_step = [(a - b) / TIMED_STEPS
+                    for a, b in zip(_stem_counts(), before)]
+        if cuda:
+            peak[length] = torch.cuda.max_memory_allocated()
+        gib = lambda b: f"{b / 2 ** 30:.2f} GiB" if b else "not measured"
+        off_ms = off["ms"].get(length)
+        print(f"  L={length}, stem on: {ms[length]:.3f} ms/step "
+              f"({batch / ms[length] * 1e3:.1f} pairs/s, host clock, "
+              f"{TIMED_STEPS} steps after 1 warm-up), peak memory "
+              f"{gib(peak.get(length))}; stem off in this run: "
+              + (f"{off_ms:.3f} ms/step" if off_ms else "not measured")
+              + f", peak {gib(off['peak'].get(length))}; launches per step "
+              f"(fwd, dw, dx) {per_step}, losses "
+              f"{[round(x, 6) for x in step_losses.tolist()]}  [{card}]")
+        if cuda and per_step != [1, 1, 0]:
+            raise AssertionError(f"L={length}: stem launches per step "
+                                 f"{per_step}, want 1 fwd, 1 dw, no dx")
+    flat = torch.cat(losses).float().cpu()
+    if not torch.isfinite(flat).all() or len(set(flat.tolist())) != len(flat):
+        raise AssertionError(f"stem-on train losses not finite and distinct: "
+                             f"{flat.tolist()}")
+    del model, state, train_step, multi_step
+    if cuda:
+        torch.cuda.empty_cache()
+    turns = stem_in_turns(device, bc, batch, buckets[-1], rng, card)
+    step_cmp = compare_step(device, bert_kw, batch, cmp_seq,
+                            knob="pallas_stem")
+
+    gc_batch, chunks = gc
+    gcfg = TrainingConfig.production(pallas_stem=True, batch_size=gc_batch,
+                                     grad_cache_chunks=chunks)
+    model = mi.build_joint_model(gcfg, bc, device=device)
+    txs = mi.make_optimizers(gcfg, steps_per_epoch=200_000 // gc_batch)
+    state = mi.create_mi_state(model, gcfg, txs,
+                               torch.Generator().manual_seed(SEED))
+    data = compact_batch(rng, gc_batch, gc_seq, bc.vocab_size, device)
+    step = mi.make_mi_train_step(model, txs, gcfg)
+    state, loss = step(state, data)                         # warm-up
+    _sync(device)
+    before = _stem_counts()
+    t0 = time.perf_counter()
+    gc_losses = [step(state, data)[1] for _ in range(GC_TIMED)]
+    _sync(device)
+    gc_ms = (time.perf_counter() - t0) / GC_TIMED * 1e3
+    gc_per_step = [(a - b) / GC_TIMED for a, b in zip(_stem_counts(), before)]
+    print(f"  GradCache B={gc_batch} in {chunks} chunks, L={gc_seq}, stem on: "
+          f"{gc_ms:.3f} ms/step (host clock, {GC_TIMED} steps after 1), "
+          f"launches per step (fwd, dw, dx) {gc_per_step}, losses "
+          f"{[round(x.item(), 6) for x in gc_losses]}  [{card}]")
+    if cuda and gc_per_step != [2 * chunks, chunks, 0]:
+        raise AssertionError(f"GradCache stem launches per step {gc_per_step},"
+                             f" want {2 * chunks} fwd, {chunks} dw, no dx")
+    train_launches = dict(sc.LAUNCHES)  # ... and ends here
+    del model, state, step, data
+    if cuda:
+        torch.cuda.empty_cache()
+
+    tower = {}
+    if cuda:
+        for stem in (True, False, False, True):     # in turns
+            tower.setdefault(stem, []).append(
+                tower_step_ms(stem, tower_batch, device))
+        print(f"  image tower alone, bf16, B={tower_batch}, forward + backward"
+              f" in train mode, (device ms, CUDA-event ms) a step over "
+              f"{TOWER_TIMED} steps, in turns: kernel stem {tower[True]}, "
+              f"cuDNN stem {tower[False]}  [{card}]")
+    sc.reset_launch_counts()            # the input-gradient call starts here
+    dx_check = tower_input_grad(device, tower_batch)
+    dx_launches = dict(sc.LAUNCHES)     # ... and ends here
+    return {"train_launches": train_launches, "dx_launches": dx_launches,
+            "ms": ms, "peak": peak, "turns": turns, "cmp": step_cmp,
+            "gc_ms": gc_ms,
+            "tower_ms": tower, "dx": dx_check}
+
+
+# ---- phase 11: the Manager's epoch loop -------------------------------------
+
+MANAGER_PAIRS = 1024
+MANAGER_WORKERS = 4
+
+
+class InMemoryPairs:
+    """The paired-dataset interface (data/pipeline.py) over in-memory
+    compact samples: uint8 256² crops, uint16 ids, uint8 masks and
+    segments, report lengths drawn over PRODUCTION_SEQ_BUCKETS by
+    BUCKET_MIX (uniform within a bucket), distinct study ids."""
+
+    def __init__(self, n: int, seq: int, vocab: int, seed: int):
+        rng = np.random.default_rng(seed)
+        self.images = rng.integers(0, 256, (n, 256, 256, 1), dtype=np.uint8)
+        bounds = (0, *PRODUCTION_SEQ_BUCKETS)
+        share = np.array([BUCKET_MIX[b] for b in PRODUCTION_SEQ_BUCKETS])
+        bucket = rng.choice(len(share), size=n, p=share / share.sum())
+        self.lengths = np.array([rng.integers(bounds[b] + 1, bounds[b + 1] + 1)
+                                 for b in bucket])
+        self.ids = rng.integers(1000, vocab, (n, seq)).astype(np.uint16)
+        self.seq = seq
+
+    def __len__(self):
+        return len(self.images)
+
+    def token_length(self, idx: int) -> int:
+        return int(self.lengths[idx])
+
+    def load(self, idx, rng, train=True):
+        mask = (np.arange(self.seq) < self.lengths[idx]).astype(np.uint8)
+        return {"image": self.images[idx], "txt_ids": self.ids[idx] * mask,
+                "txt_masks": mask,
+                "txt_segments": np.zeros(self.seq, np.uint8),
+                "study_id": np.int64(idx)}
+
+
+def drive_manager(root: str, device, bert_kw=TRAIN_BERT, pairs=MANAGER_PAIRS,
+                  batch=BATCH, workers=MANAGER_WORKERS) -> dict:
+    """``MultiModalManager(TrainingConfig.production(pallas_stem=True,
+    ...)).train(None, dataset=...)`` over InMemoryPairs: one epoch, B=64,
+    ``scan_steps`` 8, ``prefetch`` 2, ``workers`` loader threads.  Then the
+    same run again under torch.profiler for the device's busy time.
+    Returns the launches of the first run and its numbers."""
+    from mimm_tpu_torch.data.pipeline import Loader
+
+    cuda = torch.device(device).type == "cuda"
+    card = card_line() if cuda else "cpu"
+    data = InMemoryPairs(pairs, SEQ, bert_kw["vocab_size"], SEED + 21)
+    bc = BertConfig(**bert_kw)
+    want_steps = Loader(data, batch, bucket_lengths=PRODUCTION_SEQ_BUCKETS) \
+        .batches_per_epoch()
+
+    def run(name):
+        save = os.path.join(root, name)
+        cfg = TrainingConfig.production(
+            pallas_stem=True, batch_size=batch, num_train_epochs=1,
+            data_loader_workers=workers, prefetch=2, save_directory=save)
+        mgr = mi.MultiModalManager(cfg, bert_config=bc,
+                                   load_pretrained_bert=False, device=device)
+        state = mgr.train(None, dataset=data)
+        _sync(device)
+        with open(os.path.join(save, "mi.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        return save, state, [r for r in recs if "epoch_loss" in r]
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    sc.reset_launch_counts()            # the Manager's run starts here
+    save, state, recs = run("manager")
+    launches = dict(sc.LAUNCHES)        # ... and ends here
+    steps, (rec,) = state.step, recs
+    seconds, loss = rec["epoch_seconds"], rec["epoch_loss"]
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    counts = [launches.get(sc.KERNELS[k], 0) for k in ("fwd", "dw", "dx")]
+    print(f"  Manager epoch, {pairs} pairs, B={batch}, scan_steps 8, prefetch "
+          f"2, {workers} loader threads: {steps} steps (batches_per_epoch "
+          f"{want_steps}), {seconds:.3f} s ({steps * batch / seconds:.1f} "
+          f"pairs/s, host clock, from mi.jsonl), peak memory "
+          + (f"{peak / 2 ** 30:.2f} GiB" if cuda else "not measured")
+          + f", stem launches (fwd, dw, dx) {counts}, epoch loss {loss:.6f}"
+          f"  [{card}]")
+    if steps != want_steps or not math.isfinite(loss) or (
+            cuda and counts != [steps, steps, 0]):
+        raise AssertionError(f"Manager epoch: {steps} steps (want "
+                             f"{want_steps}), loss {loss}, launches {counts}")
+    check_reload(save, state, bc)
+    t0 = time.perf_counter()
+    mi.save_mi_checkpoints(os.path.join(root, "save_again"), state, 1, bc)
+    save_s = time.perf_counter() - t0
+    print(f"  save_mi_checkpoints alone, the same state: {save_s:.3f} s of "
+          f"the epoch's {seconds:.3f} s (host clock)  [{card}]")
+    del state
+    if cuda:
+        torch.cuda.empty_cache()
+        profile_call(f"Manager epoch ({steps} steps of B={batch}, the whole "
+                     f"train() call profiled), epoch seconds of the run above",
+                     lambda: run("manager_profiled"), seconds * 1e3, card)
+    return {"launches": launches, "steps": steps, "seconds": seconds,
+            "pairs_per_s": steps * batch / seconds, "peak": peak,
+            "loss": loss, "save_seconds": save_s}
+
+
+# ---- main -------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1568,11 +2179,13 @@ def main() -> int:
     checked = check_kernels("cuda")
     critic_worst = check_critic("cuda")
     ffn_worst = check_ffn("cuda")
-    print(f"== phase 3: timing at (64, 12, 320, 64), at 2048 x 2048 pairs and "
-          f"at (T, d, f) = {FFN_SHAPE}")
+    stem_worst = check_stem("cuda")
+    print(f"== phase 3: timing at (64, 12, 320, 64), at 2048 x 2048 pairs, "
+          f"at (T, d, f) = {FFN_SHAPE} and at (B, H, W) = {STEM_SHAPES[0]}")
     times = time_kernels()
     critic_times = time_critic()
     ffn_times = time_ffn()
+    stem_times = time_stem()
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
         print("== phase 4: the serving path over HTTP (full width)")
         serve = drive_serving(root, "cuda")
@@ -1593,12 +2206,21 @@ def main() -> int:
             "ms": train["ms"], "peak": train["peak"],
             "texts_per_s": serve["per_s"]["bfloat16"]["texts_per_s"]})
     fused_remat = drive_remat("cuda", bert_kw=FFN_TRAIN_BERT)
+    print(f"== phase 10: pallas_stem on the training path (full width, "
+          f"B={BATCH})")
+    stem = drive_pallas_stem("cuda", off={"ms": train["ms"],
+                                          "peak": train["peak"]})
+    print(f"== phase 11: MultiModalManager, one epoch of {MANAGER_PAIRS} "
+          f"in-memory pairs (full width, B={BATCH})")
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
+        manager = drive_manager(root, "cuda")
 
     # each path's launches, counted from 0 just before it and read just
     # after; serving runs the flash forward, training and remat the flash
     # backward too, GradCache the critic kernels, the fused_ffn paths the
     # fused FFN forward (serving) and all four of its kernels (training,
-    # remat)
+    # remat), the pallas_stem training path and the Manager the stem's
+    # forward and dW, the tower's input gradient its dx
     flash_all = [*fa.KERNELS.values(), *fa.BWD_KERNELS.values()]
     flash_bf16 = [fa.KERNELS[torch.bfloat16], fa.BWD_KERNELS[torch.bfloat16]]
     paths = {"serving": (serve["launches"], fa.KERNELS.values()),
@@ -1610,7 +2232,12 @@ def main() -> int:
              "training_fused_ffn": (fused["train_launches"],
                                     ff.KERNELS.values()),
              "remat_fused_ffn": (fused_remat["launches"],
-                                 [*flash_bf16, *ff.KERNELS.values()])}
+                                 [*flash_bf16, *ff.KERNELS.values()]),
+             "training_pallas_stem": (stem["train_launches"],
+                                      [sc.KERNELS["fwd"], sc.KERNELS["dw"]]),
+             "tower_input_grad": (stem["dx_launches"], [sc.KERNELS["dx"]]),
+             "manager": (manager["launches"],
+                         [sc.KERNELS["fwd"], sc.KERNELS["dw"]])}
     for path, (counts, names) in paths.items():
         for name in names:
             if counts.get(name, 0) == 0:
@@ -1643,6 +2270,15 @@ def main() -> int:
             **ffn_times[kind, torch.bfloat16],
             "f32": {"max_abs_err": ffn_worst[name, torch.float32],
                     **ffn_times[kind, torch.float32]}})
+    # the shallow-conv kernels likewise: bfloat16 first, float32 under "f32"
+    for kind, name in sc.KERNELS.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": STEM_SRC[kind][0],
+            "replaces": STEM_SRC[kind][1], "launches": launches(name),
+            "max_abs_err": stem_worst[name, torch.bfloat16],
+            **stem_times[kind, torch.bfloat16],
+            "f32": {"max_abs_err": stem_worst[name, torch.float32],
+                    **stem_times[kind, torch.float32]}})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

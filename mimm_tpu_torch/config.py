@@ -33,19 +33,26 @@ class TrainingConfig:
     The port runs: ``compute_dtype``, ``mi_estimator``, ``use_pallas_critic``
     (the critic's size switch: the pairwise-critic kernels past it),
     ``flash_attention``, ``gelu_tanh``, ``fused_ffn`` (the fused FFN kernels
-    where ``gelu_tanh`` is set), ``u8_dropout``, both moment dtypes,
-    the freezes, ``grad_cache_chunks`` (GradCache's two passes above 1),
-    and ``global_negatives`` on one device.  TPU schedules it accepts
-    because they give the same result: ``scan_steps`` (K steps run as a
-    loop), ``rng_impl`` (masks come from torch generators),
-    ``compact_transfer``.  Knobs of later slices raise in ``train/mi.py``
-    when set: ``pallas_stem``, the mesh and parallel modes."""
+    where ``gelu_tanh`` is set), ``pallas_stem`` (the stem on the
+    shallow-conv kernels), ``u8_dropout``, both moment dtypes, the freezes,
+    ``grad_cache_chunks`` (GradCache's two passes above 1), and
+    ``global_negatives`` on one device; ``MultiModalManager`` also reads
+    ``seq_buckets``, ``data_loader_workers``, ``prefetch`` and
+    ``checkpoint_every_epochs``.  TPU schedules it accepts because they give
+    the same result: ``scan_steps`` (K steps run as a loop), ``rng_impl``
+    (masks come from torch generators), ``compact_transfer``, ``s2d_stem``
+    (the canonical stem; exclusive with ``pallas_stem``, as in JAX).  Knobs
+    of later slices raise in ``train/mi.py`` when set: the mesh and
+    parallel modes, ``resume_from``, ``keep_checkpoints``, a
+    ``checkpoint_format`` other than "pickle", ``profile_steps`` and
+    ``tensorboard``."""
 
     bert_pretrained_dir: str = _default("bert_pretrain_all_notes_150000")
     bert_config_name: str = "bert_config.json"
     save_directory: str = _default("save_dir")
 
     batch_size: int = 64
+    data_loader_workers: int = 32
     num_train_epochs: int = 20
     mi_estimator: str = "dv"   # 'dv' | 'infonce' | 'infonce_per_anchor'
     init_lr: float = 1e-4
@@ -81,6 +88,13 @@ class TrainingConfig:
     zero1_optimizer_sharding: bool = False
     fsdp_parameter_sharding: bool = False
     grad_allreduce_dtype: str = "float32"
+    prefetch: int = 2
+    checkpoint_every_epochs: int = 1
+    profile_steps: int = 0
+    tensorboard: bool = False
+    resume_from: str = ""
+    keep_checkpoints: int = 0
+    checkpoint_format: str = "pickle"
 
     def replace(self, **kw) -> "TrainingConfig":
         return dataclasses.replace(self, **kw)

@@ -4,10 +4,12 @@ conv1 (1->8) + six strided BasicBlock layers (8, 16, 32, 64, 128, 192
 channels, each halving the spatial size) + 2x2 average pooling + fc1.
 Module names give the reference state-dict keys (``layer1.0.conv1.weight``,
 ``layer1.0.downsample.1.running_mean``, ``fc1.weight``, ...), so reference
-``.bin`` files load with ``strict=True``.  Only the canonical stem is
-ported; the JAX package's ``s2d_stem`` and ``pallas_stem`` are TPU
-schedules of the same function, and sync-BN (``bn_axis_name``) comes with
-the parallel slice.  BatchNorm follows flax in eval and train mode.
+``.bin`` files load with ``strict=True``.  The stem is the canonical
+cuDNN convolution or, with ``pallas_stem``, the shallow-conv kernels of
+ops/shallow_conv.py on the same ``conv1.weight``.  The JAX package's
+``s2d_stem`` is a TPU schedule of the canonical stem and runs as it; sync-BN
+(``bn_axis_name``) comes with the parallel slice.  BatchNorm follows flax in
+eval and train mode.
 
 The public input is NHWC ``(B, 256, 256, 1)`` as in JAX; the tower runs
 NCHW inside.  Parameters stay float32 and are cast to the compute dtype at
@@ -21,6 +23,8 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from mimm_tpu_torch.ops.shallow_conv import shallow_conv3x3
 
 
 # flax nn.BatchNorm(momentum=0.9): running = 0.9 · running + (1 − 0.9) · batch
@@ -90,9 +94,13 @@ class ResNet256_6_2_1(nn.Module):
     def __init__(self, output_channels: int = 1,
                  blocks_per_layer: Sequence[int] = (2, 2, 2, 2, 2, 2),
                  planes: Sequence[int] = (8, 16, 32, 64, 128, 192),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 s2d_stem: bool = False, pallas_stem: bool = False):
         super().__init__()
+        if s2d_stem and pallas_stem:
+            raise ValueError("s2d_stem and pallas_stem are exclusive")
         self.dtype = dtype
+        self.pallas_stem = pallas_stem
         self.conv1 = nn.Conv2d(1, 8, 3, 1, 1, bias=False)
         self.bn1 = nn.BatchNorm2d(8, eps=1e-5, momentum=0.1)
         inplanes = 8
@@ -114,8 +122,17 @@ class ResNet256_6_2_1(nn.Module):
         embedding, elementwise), ``z_local`` the layer-5 map in NHWC.
         ``train``: BatchNorm on batch statistics, running statistics
         updated in place (JAX's ``train=True`` with mutable batch_stats)."""
-        x = x.to(self.dtype).permute(0, 3, 1, 2)
-        x = F.relu(_norm(self.bn1, _conv(self.conv1, x), train))
+        x = x.to(self.dtype)
+        if self.pallas_stem:
+            # JAX's casts (resnet.py:244,251-254): the image rounded to the
+            # compute dtype, then it and the weight in float32 (a bfloat16
+            # image is widened inside the kernel); y comes back NCHW
+            x = shallow_conv3x3(
+                (x if x.dtype == torch.bfloat16 else x.float()).contiguous(),
+                self.conv1.weight.float(), self.dtype)
+        else:
+            x = _conv(self.conv1, x.permute(0, 3, 1, 2))
+        x = F.relu(_norm(self.bn1, x, train))
         z_local = None
         for li in range(self.num_layers):
             for block in getattr(self, f"layer{li + 1}"):
@@ -136,7 +153,9 @@ class ResNet256_6_2_1(nn.Module):
 
 def build_resnet_model(model_name: str = "resnet256_6_2_1",
                        output_channels: int = 1,
-                       dtype: torch.dtype = torch.float32) -> ResNet256_6_2_1:
+                       dtype: torch.dtype = torch.float32,
+                       pallas_stem: bool = False) -> ResNet256_6_2_1:
     if model_name != "resnet256_6_2_1":
         raise ValueError(f"unknown image model: {model_name}")
-    return ResNet256_6_2_1(output_channels=output_channels, dtype=dtype)
+    return ResNet256_6_2_1(output_channels=output_channels, dtype=dtype,
+                           pallas_stem=pallas_stem)

@@ -7,8 +7,10 @@ the study-id-masked negatives, the backward, and three optimizer updates:
 Adam on the image tower, Adam on the critic, pytorch_transformers AdamW
 with warmup-linear on the text tower (reference main_utils.py:151-230).
 
-Entry points, as the JAX bench drives them: ``create_mi_state`` ->
-``make_mi_train_step`` / ``make_mi_multi_step`` -> ``save_mi_checkpoints``.
+Entry points: ``MultiModalManager(cfg).train(None, dataset=...)``, the
+epoch loop a user trains with (:633-859), and beneath it, as the JAX bench
+drives them, ``create_mi_state`` -> ``make_mi_train_step`` /
+``make_mi_multi_step`` -> ``save_mi_checkpoints``.
 The state's modules and critic tensors are updated in place.  Randomness
 comes from one ``torch.Generator`` per step on the model's device, seeded
 from (cfg.seed, step), the counterpart of ``fold_in(key(seed), step)``.
@@ -24,8 +26,9 @@ the critic's size switch takes the pairwise-critic kernels.
 
 Left to later slices, and raising ``NotImplementedError`` when asked for:
 the mesh and parallel modes (pp, ZeRO-1, FSDP, sequence parallelism, bf16
-gradient all-reduce, per-shard negatives) and the native resume
-checkpoint.
+gradient all-reduce, per-shard negatives), the native resume checkpoint
+and what rests on it (resume, pruning, other formats), the on-disk
+datasets, and the profiler and TensorBoard hooks of the Manager.
 """
 
 from __future__ import annotations
@@ -34,12 +37,16 @@ import dataclasses
 import logging
 import math
 import os
+import time
 from typing import Callable, List, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from mimm_tpu_torch import checkpoint as ckpt
 from mimm_tpu_torch import resolve_device
+from mimm_tpu_torch.data.pipeline import Loader, device_prefetch, scan_chunks
+from mimm_tpu_torch.metrics import MetricWriter, Plot_Training
 from mimm_tpu_torch.models.bert import BertConfig
 from mimm_tpu_torch.models.joint import ImageReportModel
 from mimm_tpu_torch.models.mlp import make_mlp
@@ -56,7 +63,7 @@ from mimm_tpu_torch.train.optim import (GradientTransformation, adam_torch,
 logger = logging.getLogger(__name__)
 
 CRITIC_HIDDEN = (1024, 512)  # reference main_utils.py:77
-_PARALLEL = "comes with the parallel slice (ROADMAP.md queue A)"
+_PARALLEL = "comes with the parallel slice (ROADMAP.md queue A, item 9)"
 
 
 @dataclasses.dataclass
@@ -112,16 +119,16 @@ def load_bert_config(cfg) -> BertConfig:
 def build_joint_model(cfg, bert_config: Optional[BertConfig] = None,
                       mesh=None, device="cuda") -> ImageReportModel:
     """The joint model in the config's compute dtype, on ``device``.
-    ``s2d_stem`` is a TPU schedule of the same function and runs as the
-    plain stem; ``pallas_stem`` needs kernel rows 12-14 and raises."""
+    ``s2d_stem`` is a TPU schedule of the canonical stem and runs as it;
+    ``pallas_stem`` runs the stem on the shallow-conv kernels (the two are
+    exclusive, as in JAX)."""
     if mesh is not None or cfg.sequence_parallel:
         raise NotImplementedError(f"a mesh / sequence parallelism {_PARALLEL}")
-    if cfg.pallas_stem:
-        raise NotImplementedError("pallas_stem needs the shallow-conv kernels "
-                                  "(ROADMAP.md queue B rows 12-14)")
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
     model = ImageReportModel(bert_config or load_bert_config(cfg),
-                             output_channels=cfg.output_channels, dtype=dtype)
+                             output_channels=cfg.output_channels, dtype=dtype,
+                             s2d_stem=cfg.s2d_stem,
+                             pallas_stem=cfg.pallas_stem)
     return model.to(resolve_device(device))
 
 
@@ -212,8 +219,11 @@ def create_mi_state(model: ImageReportModel, cfg, txs: MIOptimizers,
     if bert_state_dict is not None:
         model.text_model.load_state_dict(
             {**model.text_model.state_dict(), **bert_state_dict}, strict=True)
-    critic = [{k: torch.as_tensor(t).to(device=device, dtype=dtype)
-               .requires_grad_() for k, t in layer.items()} for layer in critic]
+    # copies: the state's critic is updated in place and must not be the
+    # caller's ``weights``
+    critic = [{k: torch.as_tensor(t).to(device=device, dtype=dtype,
+                                        copy=True).requires_grad_()
+               for k, t in layer.items()} for layer in critic]
     return MITrainState(
         model=model, critic_params=critic,
         img_opt=txs.img.init(dict(model.image_model.named_parameters())),
@@ -440,3 +450,154 @@ def save_mi_checkpoints(save_dir: str, state: MITrainState, epoch: int,
             os.path.join(save_dir, f"pytorch_model_epoch{epoch}.bin"),
             img_sd, txt_sd)
     return save_dir
+
+
+_RESUME = ("comes with the native resume checkpoint (ROADMAP.md queue A, "
+           "item 5)")
+
+
+def _check_manager(cfg, dataset, mesh, resume_from) -> None:
+    """The Manager's knobs of later slices raise before anything is
+    written."""
+    if dataset is None:
+        raise NotImplementedError(
+            "the on-disk datasets (CXRImageReportDataset, the transforms, the "
+            "crop cache) come with a later slice (ROADMAP.md queue A, item "
+            "4); pass dataset=")
+    if mesh is not None or cfg.mesh_shape:
+        raise NotImplementedError(f"a mesh {_PARALLEL}")
+    if resume_from is not None or cfg.resume_from:
+        raise NotImplementedError(f"resume_from / preemption {_RESUME}")
+    if cfg.keep_checkpoints > 0:
+        raise NotImplementedError(f"keep_checkpoints {_RESUME}")
+    if cfg.checkpoint_format != "pickle":
+        raise NotImplementedError(f"checkpoint_format "
+                                  f"{cfg.checkpoint_format!r} {_RESUME}")
+    if cfg.profile_steps > 0 or cfg.tensorboard:
+        raise NotImplementedError("profile_steps and tensorboard come with "
+                                  "the profiling slice (ROADMAP.md queue A, "
+                                  "item 10)")
+
+
+def _epoch_loss(step_losses: list) -> float:
+    """The sum of an epoch's step losses, read from the device once, added
+    as JAX adds them (each dispatch's sum, then over dispatches)."""
+    if not step_losses:
+        return 0.0
+    flat = torch.cat([t.reshape(-1) for t in step_losses]).cpu().numpy()
+    parts = np.split(flat, np.cumsum([t.numel() for t in step_losses])[:-1])
+    return float(sum(np.sum(p) for p in parts))
+
+
+class MultiModalManager:
+    """The reference-shaped trainer (main_utils.py:53-78; JAX
+    mimm_tpu/train/mi.py:633-859): the joint model on ``device`` and, with
+    ``load_pretrained_bert``, the pytorch_transformers BERT of
+    ``cfg.bert_pretrained_dir`` over its text tower."""
+
+    def __init__(self, cfg, bert_config: Optional[BertConfig] = None,
+                 load_pretrained_bert: bool = True, device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.bert_config = bert_config or load_bert_config(cfg)
+        self.model = build_joint_model(cfg, self.bert_config,
+                                       device=self.device)
+        self.bert_state_dict = None
+        if load_pretrained_bert:
+            self.bert_state_dict = ckpt.load_bert_pytorch_bin(
+                cfg.bert_pretrained_dir)
+            if self.bert_state_dict is None:
+                logger.warning("No pretrained BERT weights found in %s — "
+                               "random init", cfg.bert_pretrained_dir)
+
+    def train(self, token_features, dataset=None, mesh=None,
+              num_epochs: Optional[int] = None,
+              export_torch_bins: bool = True,
+              resume_from: Optional[str] = None,
+              stop_after_epoch: Optional[int] = None) -> MITrainState:
+        """``num_epochs`` epochs (default ``cfg.num_train_epochs``) over
+        ``dataset`` (the paired-dataset interface of data/pipeline.py).
+        Per epoch: the loader's stream, grouped into ``cfg.scan_steps``
+        chunks, copied to the card ``cfg.prefetch`` batches ahead; the step
+        losses stay on the device and are read once at the epoch's end.
+        Checkpoints (``save_mi_checkpoints``) every
+        ``cfg.checkpoint_every_epochs`` epochs, after the last, and when
+        ``stop_after_epoch`` ends the run early while the schedule keeps
+        ``num_epochs``.  ``token_features`` feeds the on-disk dataset of a
+        later slice and is not read."""
+        del token_features
+        cfg = self.cfg
+        _check_manager(cfg, dataset, mesh, resume_from)
+        os.makedirs(cfg.save_directory, exist_ok=True)
+        writer = MetricWriter(cfg.save_directory, name="mi",
+                              log_filename="training_MI.log",
+                              tensorboard=cfg.tensorboard)
+        num_epochs = num_epochs or cfg.num_train_epochs
+        buckets = list(cfg.seq_buckets or ()) or None
+        if buckets and max(buckets) < cfg.max_seq_length:
+            # a longer report would be cut to the largest bucket; a bucket
+            # of max_seq_length keeps its tokens
+            logger.warning(
+                "seq_buckets max %d < max_seq_length %d: adding a %d "
+                "bucket so longer reports keep their full tokens",
+                max(buckets), cfg.max_seq_length, cfg.max_seq_length)
+            buckets.append(cfg.max_seq_length)
+        loader = Loader(dataset, batch_size=cfg.batch_size, seed=cfg.seed,
+                        bucket_lengths=buckets,
+                        num_workers=cfg.data_loader_workers)
+        logger.info("Total number of training image-report pairs: %d",
+                    len(dataset))
+        # under bucketing each bucket drops its own remainder: the
+        # schedule's t_total counts the batches the loader yields
+        steps_per_epoch = max(1, loader.batches_per_epoch())
+        txs = make_optimizers(cfg, steps_per_epoch=steps_per_epoch,
+                              num_epochs=num_epochs)
+        state = create_mi_state(self.model, cfg, txs,
+                                torch.Generator().manual_seed(cfg.seed),
+                                bert_state_dict=self.bert_state_dict)
+        train_step = make_mi_train_step(self.model, txs, cfg)
+        scan_steps = max(1, int(cfg.scan_steps))
+        multi_step = make_mi_multi_step(self.model, txs, cfg) \
+            if scan_steps > 1 else None
+
+        training_loss = []
+        for epoch in range(num_epochs):
+            start = time.time()
+            step_losses = []
+            stream = loader.epoch(epoch)
+            if scan_steps > 1:
+                stream = scan_chunks(stream, scan_steps)
+            for batch in device_prefetch(stream, size=cfg.prefetch,
+                                         device=self.device):
+                if batch["image"].dim() == 5:       # a stacked scan chunk
+                    state, loss = multi_step(state, batch)
+                else:
+                    state, loss = train_step(state, batch)
+                step_losses.append(loss)
+            epoch_loss = _epoch_loss(step_losses)
+            training_loss.append(epoch_loss)
+
+            every = max(1, int(cfg.checkpoint_every_epochs))
+            stopping = stop_after_epoch is not None \
+                and epoch + 1 >= stop_after_epoch
+            path = None
+            if (epoch + 1) % every == 0 or epoch + 1 == num_epochs or stopping:
+                path = save_mi_checkpoints(cfg.save_directory, state,
+                                           epoch + 1, self.bert_config,
+                                           export_torch_bins=export_torch_bins)
+            writer.epoch_summary(epoch + 1, epoch_loss, time.time() - start,
+                                 path)
+            if loader.skipped:
+                writer.write(epoch=epoch + 1, skipped_records=loader.skipped)
+            if stopping:
+                logger.info("stop_after_epoch=%d reached (schedule t_total "
+                            "stays %d epochs) — checkpointed and stopping",
+                            stop_after_epoch, num_epochs)
+                break
+
+        Plot_Training("Epochs", "Value for Loss", "MI training",
+                      [training_loss], ["train loss"],
+                      os.path.join(cfg.save_directory,
+                                   "mutual_information_training.png"))
+        writer.close()
+        return state

@@ -1,6 +1,6 @@
 // A CPU stand-in for the subset of the CUDA runtime that the pairwise
-// critic and fused FFN kernels use, for tests/test_torch_critic_emulated.py
-// and tests/test_torch_fused_ffn_emulated.py: blocks run
+// critic, fused FFN and shallow conv kernels use, for the
+// tests/test_torch_*_emulated.py files: blocks run
 // one after another; the threads of a block run as std::threads that meet
 // at __syncthreads (a std::barrier); __shared__ arrays become function
 // statics, which all threads of the running block share; dynamic shared
@@ -34,6 +34,15 @@ inline std::barrier<>* emu_bar = nullptr;
 inline std::vector<float> emu_dyn;
 
 inline float* emu_dyn_smem() { return emu_dyn.data(); }
+// the round-to-nearest product and sum, never contracted into an FMA
+inline float __fmul_rn(float a, float b) {
+  volatile float p = a * b;
+  return p;
+}
+inline float __fadd_rn(float a, float b) {
+  volatile float s = a + b;
+  return s;
+}
 inline void __syncthreads() { emu_bar->arrive_and_wait(); }
 
 #define __global__

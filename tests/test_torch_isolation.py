@@ -59,7 +59,8 @@ def test_training_import_leaves_jax_unloaded():
     code = ("import sys, json; import mimm_tpu_torch.train.mi, "
             "mimm_tpu_torch.train.optim, mimm_tpu_torch.objectives.pairing, "
             "mimm_tpu_torch.ops.pairwise_critic, mimm_tpu_torch.ops.dropout, "
-            "mimm_tpu_torch.ops.fused_ffn; "
+            "mimm_tpu_torch.ops.fused_ffn, mimm_tpu_torch.ops.shallow_conv, "
+            "mimm_tpu_torch.data.pipeline, mimm_tpu_torch.metrics; "
             "print(json.dumps(sorted(m for m in sys.modules if "
             "m.split('.')[0] in %r)))" % (FORBIDDEN,))
     proc = subprocess.run([sys.executable, "-c", code], env=child_env(),
@@ -81,7 +82,8 @@ def test_build_all_lists_every_cuda_source(monkeypatch, tmp_path):
                   for p in glob.glob(os.path.join(csrc, "*.cu")))
     assert want == ["flash_attention_bwd", "flash_attention_fwd",
                     "fused_ffn_bwd", "fused_ffn_fwd",
-                    "pairwise_critic_bwd", "pairwise_critic_fwd"]
+                    "pairwise_critic_bwd", "pairwise_critic_fwd",
+                    "shallow_conv"]
     monkeypatch.setattr(_build, "build", lambda name: f"lib{name}.so")
     assert sorted(_build.build_all()) == want
 

@@ -1,0 +1,125 @@
+"""The shallow-conv CUDA source (mimm_tpu_torch/csrc/shallow_conv.cu),
+compiled for the CPU with g++ against a stand-in for the CUDA runtime
+(tests/cuda_cpu: a block's threads as std::threads meeting at
+__syncthreads, blocks one after another, bfloat16 as its 16 bits with
+round-to-nearest-even, ``__fmul_rn`` / ``__fadd_rn`` never contracted), and
+called through the port's own kernel wrappers (``fwd_kernel``,
+``dw_kernel``, ``dx_kernel``) on CPU tensors.  Their outputs are held
+against the plain versions on the same inputs.
+
+This checks the kernels' indexing, the tiles' borders (shapes whose H and
+W are no multiples of the 16 x 64 tiles), the staging of the dy tile of all
+channels, the fixed-order sums of dW, and the dtype pairs the entry points
+dispatch, without a card; the card's compiler and every time come only
+from chip_smoke.py.  The forward and dx round each product and each
+running sum as the plain versions do, in their order, so they must agree
+to the bit in float32 and in bfloat16; dW sums in another order: max |Δ|
+over max |plain| ≤ 1e-5.
+
+The port side runs in a jax-free child (tests/torch_port_child.py); without
+g++ the test skips.
+"""
+
+import json
+import os
+import shutil
+import sys
+
+import numpy as np
+import pytest
+
+# (B, H, W, x / y dtype, dy / dx dtype)
+CASES = {"tile": (2, 16, 64, "float32", "float32"),
+         "ragged": (2, 17, 23, "float32", "float32"),
+         "ragged_wide": (1, 40, 130, "float32", "float32"),
+         "ragged_bf16": (2, 17, 23, "bfloat16", "bfloat16"),
+         "mixed": (1, 33, 70, "float32", "bfloat16")}
+DW_TOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def results(tmp_path_factory):
+    from tests.torch_port_child import run_child
+
+    job = str(tmp_path_factory.mktemp("shallow_conv_emulated"))
+    _, meta = run_child(__file__, job, timeout=900)
+    return meta
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_emulated_kernels_match_plain(results, case):
+    if "skip" in results:
+        pytest.skip(results["skip"])
+    got = results["cases"][case]
+    assert got["fwd_equal"] is True and got["dx_equal"] is True, got
+    assert got["dw_err"] <= DW_TOL, got
+
+
+def test_emulated_kernels_launch_once_per_call(results):
+    if "skip" in results:
+        pytest.skip(results["skip"])
+    assert results["launches"] == {n: len(CASES) for n in results["kernels"]}
+
+
+def test_emulated_entry_points_refuse_other_widths(results):
+    """The C entry points return cudaErrorInvalidValue for C ≠ 8, and the
+    wrapper raises with the shape; nothing is counted."""
+    if "skip" in results:
+        pytest.skip(results["skip"])
+    for kind, msg in results["refused"].items():
+        assert msg.startswith("RuntimeError") and "cudaError_t 1" in msg \
+            and "(2, 8, 8, 4)" in msg, (kind, msg)
+
+
+def _child(job):
+    import ctypes
+
+    import torch
+
+    from mimm_tpu_torch.ops import _build
+    from mimm_tpu_torch.ops import shallow_conv as sc
+    from tests.test_torch_train import _error_of
+    from tests.torch_port_child import build_emulated
+
+    meta = {}
+    if shutil.which("g++") is None:
+        meta["skip"] = "needs g++ to build the CUDA sources for the CPU"
+    else:
+        out = os.path.join(job, f"lib{sc.SOURCE}.so")
+        build_emulated(os.path.join(_build.CSRC, f"{sc.SOURCE}.cu"), out)
+        lib = ctypes.CDLL(out)
+        _build.load = lambda name: lib      # this child only
+        sc._launch = lambda fn, like, *args: fn(*args, None)
+        sc.reset_launch_counts()
+        meta["cases"] = {}
+        for case, (b, h, w, xt, gt) in CASES.items():
+            gen = torch.Generator().manual_seed(h * w)
+            xdt, gdt = getattr(torch, xt), getattr(torch, gt)
+            x = torch.rand(b, h, w, 1, generator=gen).to(xdt)
+            weight = torch.randn(8, 1, 3, 3, generator=gen) * 0.5
+            dy = torch.randn(b, 8, h, w, generator=gen).to(gdt)
+            dw, want_dw = sc.dw_kernel(x, dy), sc.dw_plain(x, dy)
+            meta["cases"][case] = {
+                "fwd_equal": torch.equal(sc.fwd_kernel(x, weight, xdt),
+                                         sc.fwd_plain(x, weight, xdt)),
+                "dx_equal": torch.equal(sc.dx_kernel(dy, weight, xdt),
+                                        sc.dx_plain(dy, weight, xdt)),
+                "dw_err": ((dw - want_dw).abs().max()
+                           / want_dw.abs().max()).item()
+                if dw.shape == want_dw.shape else float("inf")}
+        meta["launches"] = dict(sc.LAUNCHES)
+        meta["kernels"] = list(sc.KERNELS.values())
+        x, w4 = torch.zeros(2, 8, 8, 1), torch.zeros(4, 1, 3, 3)
+        dy = torch.zeros(2, 4, 8, 8)
+        meta["refused"] = {
+            "fwd": _error_of(lambda: sc.fwd_kernel(x, w4, torch.float32)),
+            "dw": _error_of(lambda: sc.dw_kernel(x, dy)),
+            "dx": _error_of(lambda: sc.dx_kernel(dy, w4, torch.float32))}
+        assert dict(sc.LAUNCHES) == meta["launches"]
+    np.savez(os.path.join(job, "out.npz"))
+    with open(os.path.join(job, "out.json"), "w") as f:
+        json.dump(meta, f)
+
+
+if __name__ == "__main__":
+    _child(sys.argv[1])

@@ -297,9 +297,13 @@ def test_production_f32_flash_step_matches_jax(results):
 
 
 def test_unported_knobs_raise(results):
+    """Knobs of later slices raise; ``s2d_stem`` with ``pallas_stem`` raises
+    JAX's ValueError (mimm_tpu/models/resnet.py:246-247)."""
     meta = results[2]
-    for knob in ("zero1_optimizer_sharding", "mesh", "pallas_stem"):
+    for knob in ("zero1_optimizer_sharding", "mesh"):
         assert meta["raises"][knob].startswith("NotImplementedError"), knob
+    assert meta["raises"]["s2d_and_pallas_stem"] == \
+        "ValueError: s2d_stem and pallas_stem are exclusive"
 
 
 def test_checkpoints_reload_strict(results):
@@ -421,8 +425,9 @@ def _child(job):
             model, txs, cfg.replace(zero1_optimizer_sharding=True))),
         "mesh": _error_of(lambda: mi.make_mi_train_step(model, txs, cfg,
                                                         mesh=object())),
-        "pallas_stem": _error_of(lambda: mi.build_joint_model(
-            cfg.replace(pallas_stem=True), BertConfig(**BERT), device="cpu")),
+        "s2d_and_pallas_stem": _error_of(lambda: mi.build_joint_model(
+            cfg.replace(s2d_stem=True, pallas_stem=True), BertConfig(**BERT),
+            device="cpu")),
     }
     save = os.path.join(job, "save")
     mi.save_mi_checkpoints(save, state, 1, BertConfig(**BERT))
