@@ -8,8 +8,10 @@ no arguments.  Phases:
 1. versions, the card's name and power limit, and the build of every CUDA
    source of the port (mimm_tpu_torch/csrc, one nvcc each, all started
    together) with ptxas's registers, shared memory and spills, and for
-   each flash kernel the count of tensor-core (HMMA) instructions in its
-   SASS (``cuobjdump -sass``; the bfloat16 kernels must have some);
+   each flash kernel and critic backward kernel the count of tensor-core
+   (HMMA) instructions in its SASS (``cuobjdump -sass``; the bfloat16
+   flash kernels and row 6's critic kernels must have some, the float32
+   flash kernels and row 7's critic kernel none);
 2. each kernel against its plain PyTorch version on the card at the shapes
    the serving and training paths give it, with a different number of
    padded keys in each row: the flash forward at dropout rate 0 and 0.1,
@@ -19,7 +21,8 @@ no arguments.  Phases:
    rate of the Philox mask, and the CUDA Philox against Random123's
    known-answer vectors; the pairwise-critic kernels (S and the seven
    gradients) at (20, 12), (300, 257) and the GradCache step's 2048 x 2048
-   pairs, with the reference critic's widths; the four fused FFN kernels
+   pairs, with the reference critic's widths, and a second backward call
+   on the same inputs that must give the same bits; the four fused FFN kernels
    in float32 and bfloat16 at (T, d, f) = (20480, 768, 3072), at a ragged
    T and at a small shape; the three shallow-conv stem kernels (forward,
    dW, dx) in float32 and bfloat16 at (B, H, W) = (64, 256, 256), a ragged
@@ -28,7 +31,8 @@ no arguments.  Phases:
    kernels at (64, 12, 320, 64) with one PyTorch library call's
    (``scaled_dot_product_attention`` forward, or its backward alone: a
    yardstick the port never calls), the critic kernels at 2048 x 2048
-   pairs with the factorized path (plain PyTorch and cuBLAS) as yardstick,
+   pairs with the factorized path (plain PyTorch and cuBLAS) as yardstick
+   and each bound in 3xTF32 and at the float32 CUDA-core rate,
    the fused FFN kernels at (20480, 768, 3072) with the unfused path
    (``F.linear``, ``F.gelu``, ``F.linear`` and autograd through them), the
    stem kernels at (64, 256, 256) with one cuDNN call each (``F.conv2d``,
@@ -175,6 +179,7 @@ RESPONSE_TOL = {"float32": 12 * 1e-4, "bfloat16": 5e-2}
 # tensor cores, bf16 on them)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_TF32_FLOP_PER_S = 494.7e12    # dense, on the tensor cores
 # backward kernel vs autograd through the plain version, max abs error over
 # max |reference| of each of dQ, dK, dV: in float32 the two differ in the
 # order of f32 sums; in bfloat16 the kernel rounds P∘M and dS to bf16
@@ -221,11 +226,26 @@ STEM_FLIP_SHARE = 5e-3
 CRITIC_SHAPES = ((20, 12), (300, 257), (2048, 2048))
 CRITIC_HIDDEN = mi.CRITIC_HIDDEN
 CRITIC_ROWS = 256          # image rows per block of the plain version
+# check_critic_normal's shapes, and the bwd_img / bwd_w launches its
+# chunked run of the first takes
+CRITIC_NORMAL_SHAPES = ((300, 257), (2048, 2048))
+CRITIC_CHUNKS = 4
+# bwd_img's z2 > 0 decisions unlike float64's, at most this many times the
+# share that float32 z2 (TF32 off) has.  Measured on an NVIDIA H100 80GB
+# HBM3 at 700 W: 7.5-7.8 x at (300, 257), 15.8 x at 2048² (1.07e-6 against
+# 6.75e-8); one TF32 product 553-1302 x
+CRITIC_FLIP_RATIO = 32
 # kernel against plain version, max abs error over max |reference|.  The
 # inputs lie on a 2^-6 grid, so z2 is exact in f32 in any summation order
 # and the relu masks of the two agree; what remains is the order of the
 # later f32 sums: 1e-4 for S and dh (≤ 2048·512 terms), 1e-3 for the
-# weight gradients, which sum 4.2 M pair terms in another order.
+# weight gradients, which sum 4.2 M pair terms in another order.  On
+# normal values (check_critic_normal) the same limits hold row 6 against
+# float64 with the kernels' own relu masks; measured on an NVIDIA H100
+# 80GB HBM3 at 700 W: the kernels 2.5e-7-1.6e-6, one TF32 product
+# 1.8e-4-3.4e-4 (dh_img past 1e-4).  Against the plain version with its
+# own masks, flipped masks at z2 ≈ 0 give float32 itself (TF32 off) up to
+# 3.3e-3 there, and the kernels up to 1.3e-2.
 CRITIC_TOL = {"S": 1e-4, "dh_img": 1e-4, "dh_txt": 1e-4, "db1": 1e-3,
               "dW2": 1e-3, "db2": 1e-3, "dw3": 1e-3, "db3": 1e-3}
 CRITIC_SRC = {
@@ -312,44 +332,54 @@ def versions_and_build() -> None:
     return libs
 
 
-# the device functions of each flash kernel, by a part of their mangled name
-FLASH_FUNCTIONS = {
-    "flash_attention_fwd_bf16": ("fwd_bf16_kernel",),
-    "flash_attention_fwd_f32": ("fwd_kernelIfE",),
-    "flash_attention_bwd_bf16": ("bwd_rows_bf16_kernel", "bwd_cols_bf16_kernel"),
-    "flash_attention_bwd_f32": ("bwd_rows_kernelIfE", "bwd_cols_kernelIfE")}
+# the device functions of each tensor-core candidate, by a part of their
+# mangled name: (library, parts, must it have HMMA)
+SASS_FUNCTIONS = {
+    "flash_attention_fwd_bf16": (fa.SOURCE, ("fwd_bf16_kernel",), True),
+    "flash_attention_fwd_f32": (fa.SOURCE, ("fwd_kernelIfE",), False),
+    "flash_attention_bwd_bf16": (fa.BWD_SOURCE, ("bwd_rows_bf16_kernel",
+                                                 "bwd_cols_bf16_kernel"), True),
+    "flash_attention_bwd_f32": (fa.BWD_SOURCE, ("bwd_rows_kernelIfE",
+                                                "bwd_cols_kernelIfE"), False),
+    # row 6 on the tensor cores (3xTF32), row 7 on the CUDA cores
+    "pairwise_critic_bwd_img": (pc.BWD_SOURCE, ("bwd_img_kernel",), True),
+    "pairwise_critic_bwd_w": (pc.BWD_SOURCE, ("bwd_w_kernel",), True),
+    "pairwise_critic_bwd_txt": (pc.BWD_SOURCE, ("bwd_txt_kernel",), False)}
 
 
 def sass_counts(libs: dict) -> dict:
-    """{flash kernel: tensor-core (HMMA) instructions in its SASS}, from
-    ``cuobjdump -sass`` of the built libraries; the bfloat16 kernels must
-    have some."""
+    """{kernel: tensor-core (HMMA) instructions in its SASS}, from
+    ``cuobjdump -sass`` of the built libraries: the bfloat16 flash kernels
+    and row 6's critic kernels must have some, the float32 flash kernels and
+    row 7's critic kernel none."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     per_function = {}
-    for src in (fa.SOURCE, fa.BWD_SOURCE):
+    for src in sorted({lib for lib, _, _ in SASS_FUNCTIONS.values()}):
         sass = subprocess.run([tool, "-sass", libs[src]], capture_output=True,
                               text=True, check=True).stdout
         name = None
         for line in sass.splitlines():
             if "Function :" in line:
-                name = line.split("Function :")[1].strip()
+                name = (src, line.split("Function :")[1].strip())
                 per_function[name] = collections.Counter()
             elif name is not None and "HMMA" in line:
                 per_function[name]["HMMA"] += 1
             elif name is not None and ("FFMA" in line or "FMUL" in line):
                 per_function[name]["FFMA/FMUL"] += 1
-    counts = {}
-    for kernel, parts in FLASH_FUNCTIONS.items():
-        found = {f: c for f, c in per_function.items()
-                 if any(p in f for p in parts)}
+    counts, wrong = {}, []
+    for kernel, (src, parts, tensor_cores) in SASS_FUNCTIONS.items():
+        found = {f: c for (lib, f), c in per_function.items()
+                 if lib == src and any(p in f for p in parts)}
         counts[kernel] = sum(c["HMMA"] for c in found.values())
         print(f"  SASS {kernel}: {counts[kernel]} HMMA, "
               f"{sum(c['FFMA/FMUL'] for c in found.values())} FFMA/FMUL in "
               f"{sorted(found)}")
-    if not all(counts[names[torch.bfloat16]]
-               for names in (fa.KERNELS, fa.BWD_KERNELS)):
-        raise AssertionError(f"the bfloat16 flash kernels have no "
-                             f"tensor-core instructions: {counts}")
+        if not found or bool(counts[kernel]) != tensor_cores:
+            wrong.append(kernel)
+    if wrong:
+        raise AssertionError(f"tensor-core (HMMA) instructions where none "
+                             f"belong or none where they must be: {wrong} "
+                             f"{counts}")
     return counts
 
 
@@ -491,7 +521,11 @@ def check_critic(device, shapes=CRITIC_SHAPES, hidden=CRITIC_HIDDEN) -> dict:
         args = critic_inputs(n_img, n_txt, hidden, gen, device)
         rows = CRITIC_ROWS if n_img > CRITIC_ROWS else None
         got = [pc.pair_scores(*args[:7]), *pc.pair_scores_bwd(*args)]
+        again = pc.pair_scores_bwd(*args)
         _sync(device)
+        # every sum in a fixed order: the same bits twice (remat, GradCache)
+        rerun = all(torch.equal(a, b) for a, b in zip(got[1:], again))
+        del again
         want = [pc.pair_scores_plain(*args[:7], rows=rows),
                 *pc.pair_scores_bwd_plain(*args, rows=rows)]
         _sync(device)
@@ -502,8 +536,12 @@ def check_critic(device, shapes=CRITIC_SHAPES, hidden=CRITIC_HIDDEN) -> dict:
         print(f"  pairwise critic {(n_img, n_txt, *hidden)}: scaled max err "
               + ", ".join(f"{n} {errs[n]:.2e}" for n in names)
               + f" (tol {CRITIC_TOL['S']:.0e} for S and dh, "
-              f"{CRITIC_TOL['dW2']:.0e} for the weights)")
+              f"{CRITIC_TOL['dW2']:.0e} for the weights); a second backward "
+              f"gives the same bits: {rerun}")
         bad = [n for n in names if not errs[n] <= CRITIC_TOL[n]]
+        if not rerun:
+            raise AssertionError(f"two critic backward calls at "
+                                 f"{(n_img, n_txt)} differ")
         if bad:
             raise AssertionError(f"critic kernels disagree with the plain "
                                  f"version at {(n_img, n_txt)}: {bad} {errs}")
@@ -515,6 +553,197 @@ def check_critic(device, shapes=CRITIC_SHAPES, hidden=CRITIC_HIDDEN) -> dict:
                           (k["bwd_reduce"], max(abs_err[n] for n in weights))):
             worst[name] = max(worst[name], err)
         del got, want, args
+    return worst
+
+
+def critic_inputs_normal(n_img, n_txt, hidden, gen, device):
+    """(h_img, h_txt, b1, W2, b2, w3, b3, g) float32 at the scale of the
+    reference critic in training: h = emb·W1 of unit-normal 768-d
+    embeddings, W1, W2, w3 and the biases as ``make_mlp(1536, hidden)``
+    initializes them (uniform within 1/sqrt(fan_in)), g unit-normal over
+    B_txt (a softmax cross-entropy cotangent's scale).  Unlike
+    ``critic_inputs`` no value is exact in tf32, so every low half of the
+    3xTF32 split is in play, and z2 lies within rounding of 0 for some
+    pairs."""
+    h1, h2 = hidden
+    d = BERT_BASE["hidden_size"]
+    mlp = make_mlp(2 * d, list(hidden),
+                   generator=torch.Generator().manual_seed(SEED + n_img))
+    (w1, b1), (w2, b2), (w3, b3) = [(layer["w"].to(device),
+                                     layer["b"].to(device)) for layer in mlp]
+    emb = [torch.randn(n, d, generator=gen, device=device)
+           for n in (n_img, n_txt)]
+    g = torch.randn(n_img, n_txt, generator=gen, device=device) / n_txt
+    return (emb[0] @ w1[:d], emb[1] @ w1[d:], b1, w2.contiguous(), b2,
+            w3.contiguous(), b3, g)
+
+
+def critic_masked_bwd(args, bits, rows):
+    """Row 6's gradients with the relu masks the kernels used: t from the
+    float32 z1 = (h_img + h_txt) + b1 they form, the z2 > 0 mask from
+    ``bits`` (``bwd_img``'s), the products in float64 (the judge), float32
+    and float32 in one TF32 pass each (the control).  So only the products'
+    own rounding is left.  Also the share of z2 > 0 decisions that differ
+    from float64's: ``bits``', and those of z2 in float32 and in TF32.
+    Returns ({variant: {output: tensor}}, {variant: share})."""
+    h_img, h_txt, b1, w2, b2, w3, _, g = args
+    (n_img, h1), n_txt, h2 = h_img.shape, h_txt.shape[0], w2.shape[1]
+    variants = {"f64": torch.float64, "f32": torch.float32,
+                "tf32": torch.float32}
+    grads = {v: {"dh_img": torch.empty(n_img, h1, dtype=dt,
+                                       device=h_img.device),
+                 "dW2": torch.zeros(h1, h2, dtype=dt, device=h_img.device),
+                 "db2": torch.zeros(h2, dtype=dt, device=h_img.device)}
+             for v, dt in variants.items()}
+    flips = dict.fromkeys(("kernel", "f32", "tf32"), 0)
+    shifts = torch.arange(32, device=bits.device, dtype=torch.int32)
+    for blk in pc._row_blocks(n_img, rows):
+        t32 = F.relu(h_img[blk, None, :] + h_txt[None, :, :] + b1)
+        n = t32.shape[0]
+        words = bits[blk.start * n_txt:blk.stop * n_txt]
+        mask = ((words[..., None] >> shifts) & 1).reshape(n, n_txt, -1)
+        mask = mask[..., :h2].bool()
+        del words
+        z_pos = {}
+        for v, dt in variants.items():
+            torch.backends.cuda.matmul.allow_tf32 = v == "tf32"
+            try:
+                t, w = t32.to(dt), w2.to(dt)
+                z_pos[v] = (t @ w + b2.to(dt)) > 0
+                dz2 = (g[blk, :, None].to(dt) * w3.reshape(-1).to(dt)) * mask
+                grads[v]["dh_img"][blk] = ((dz2 @ w.T) * (t32 > 0)).sum(1)
+                grads[v]["dW2"] += t.reshape(-1, h1).T @ dz2.reshape(-1, h2)
+                grads[v]["db2"] += dz2.sum((0, 1))
+                del t, dz2
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+        flips["kernel"] += (mask != z_pos["f64"]).sum().item()
+        for v in ("f32", "tf32"):
+            flips[v] += (z_pos[v] != z_pos["f64"]).sum().item()
+        del t32, mask, z_pos
+    for v in grads:
+        grads[v]["db1"] = grads[v]["dh_img"].sum(0)
+    return grads, {v: c / (n_img * n_txt * h2) for v, c in flips.items()}
+
+
+def check_critic_normal(device, shapes=CRITIC_NORMAL_SHAPES,
+                        hidden=CRITIC_HIDDEN) -> dict:
+    """The critic kernels on ``critic_inputs_normal``, per shape.  On such
+    values z2 lies within float32 rounding of 0 for some pairs, and a
+    flipped relu mask moves a gradient by one pair's term, which no float32
+    version avoids (the plain one with TF32 off included): so the products
+    and the masks are judged apart.  Raises unless
+      * row 6's gradients (dh_img, db1, dW2, db2) hold CRITIC_TOL,
+        unchanged, against ``critic_masked_bwd`` in float64 with the
+        kernels' own masks, and the control (the same in TF32, what one
+        TF32 product in place of 3xTF32 gives) fails it at the last shape;
+      * ``bwd_img``'s z2 > 0 decisions differ from float64's in at most
+        CRITIC_FLIP_RATIO times the share that float32 z2 (TF32 off) does,
+        and TF32's exceed that at the last shape;
+      * S and dw3, continuous in z2, hold CRITIC_TOL against the plain
+        version in float64;
+      * two backward calls give the same bits, and each kernel launches
+        once a call.
+    Every gradient's error against the plain version in float64 is printed
+    beside the plain float32 version's.  The first shape runs again with
+    BITS_BUDGET_BYTES cut so that row 6 takes about CRITIC_CHUNKS launches
+    of bwd_img and bwd_w, whole bwd_img blocks of image rows each.  Returns
+    the largest max abs error per kernel name."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 16)
+    worst = dict.fromkeys(pc.KERNELS.values(), 0.0)
+    names = ("S", "dh_img", "dh_txt", "db1", "dW2", "db2", "dw3", "db3")
+    row6 = ("dh_img", "db1", "dW2", "db2")
+    budget = pc.BITS_BUDGET_BYTES
+    runs = [(shape, None) for shape in shapes]
+    runs.insert(1, (shapes[0], CRITIC_CHUNKS))
+    fmt = lambda e: ", ".join(f"{n} {v:.2e}" for n, v in e.items())
+    for run, ((n_img, n_txt), chunks) in enumerate(runs):
+        last = run == len(runs) - 1
+        args = critic_inputs_normal(n_img, n_txt, hidden, gen, device)
+        bargs = (*args[:6], args[7])
+        rows = CRITIC_ROWS // 2 if n_img > CRITIC_ROWS else None
+        if chunks:      # whole bwd_img blocks of image rows a launch
+            per = -(-n_img // chunks)
+            per = -(-per // pc._IMG_ROWS) * pc._IMG_ROWS
+            pc.BITS_BUDGET_BYTES = per * n_txt * -(-hidden[1] // 32) * 4
+            chunks = -(-n_img // per)
+        try:
+            before = dict(pc.LAUNCHES)
+            got = [pc.pair_scores(*args[:7]), *pc.pair_scores_bwd(*args)]
+            launched = {k: pc.LAUNCHES[pc.KERNELS[k]]
+                        - before.get(pc.KERNELS[k], 0) for k in pc.KERNELS}
+            again = pc.pair_scores_bwd(*args)
+        finally:
+            pc.BITS_BUDGET_BYTES = budget
+        _sync(device)
+        rerun = all(torch.equal(a, b) for a, b in zip(got[1:], again))
+        del again
+        got = dict(zip(names, got))
+        bits = pc.bwd_img_kernel(bargs, torch.empty_like(args[0]), torch.empty(
+            -(-n_img // pc._IMG_ROWS), 2 * hidden[1] + 1, device=device))
+        masked, flips = critic_masked_bwd(args, bits, rows)
+        del bits
+        ref = masked.pop("f64")
+        err = {v: {n: _scaled_err(a[n], ref[n]) for n in row6}
+               for v, a in [("kernel", got), *masked.items()]}
+        f64 = [a.double() for a in args]
+        want = dict(zip(names, [pc.pair_scores_plain(*f64[:7], rows=rows),
+                                *pc.pair_scores_bwd_plain(*f64, rows=rows)]))
+        del f64
+        plain = dict(zip(names, [pc.pair_scores_plain(*args[:7], rows=rows),
+                                 *pc.pair_scores_bwd_plain(*args, rows=rows)]))
+        end = {v: {n: _scaled_err(a[n], want[n]) for n in names}
+               for v, a in (("kernel", got), ("f32", plain))}
+        del plain
+        print(f"  pairwise critic, normal values {(n_img, n_txt, *hidden)}"
+              f"{f' in {chunks} row ranges' if chunks else ''}: row 6 with "
+              f"the kernels' masks against float64: kernels {fmt(err['kernel'])}"
+              f"; float32 {fmt(err['f32'])}; control, TF32 "
+              f"{fmt(err['tf32'])} (tol {CRITIC_TOL['dh_img']:.0e} for dh, "
+              f"{CRITIC_TOL['dW2']:.0e} for the weights)")
+        print(f"    z2 > 0 decisions unlike float64's: bwd_img "
+              f"{flips['kernel']:.3e}, float32 {flips['f32']:.3e}, TF32 "
+              f"{flips['tf32']:.3e} (limit {CRITIC_FLIP_RATIO} x float32's);"
+              f" against the plain version in float64, masks as each "
+              f"computes them: kernels {fmt(end['kernel'])}; plain float32 "
+              f"{fmt(end['f32'])}; a second backward gives the same bits: "
+              f"{rerun}; launches {launched}")
+        want_launches = {k: chunks if chunks and k in ("bwd_img", "bwd_w")
+                         else 1 for k in pc.KERNELS}
+        bad = [n for n in row6 if not err["kernel"][n] <= CRITIC_TOL[n]]
+        bad += [n for n in ("S", "dw3")
+                if not end["kernel"][n] <= CRITIC_TOL[n]]
+        # at least one decision's share, so that one flip is no failure
+        flip_limit = CRITIC_FLIP_RATIO * max(
+            flips["f32"], 1 / (n_img * n_txt * hidden[1]))
+        if not flips["kernel"] <= flip_limit:
+            bad.append("z2 > 0 decisions")
+        if not rerun:
+            raise AssertionError(f"two critic backward calls at "
+                                 f"{(n_img, n_txt)} differ")
+        if bad:
+            raise AssertionError(f"critic kernels on normal values at "
+                                 f"{(n_img, n_txt)}: {bad} {err['kernel']} "
+                                 f"{end['kernel']} {flips}")
+        if launched != want_launches:
+            raise AssertionError(f"critic launches {launched}, want "
+                                 f"{want_launches}")
+        if last and (all(err["tf32"][n] <= CRITIC_TOL[n] for n in row6)
+                     or flips["tf32"] <= flip_limit):
+            raise AssertionError(f"the TF32 control passes at "
+                                 f"{(n_img, n_txt)}: {err['tf32']} {flips};"
+                                 f" the check cannot tell 3xTF32 from one "
+                                 f"TF32 product")
+        k = pc.KERNELS
+        abs_err = lambda n, r: (got[n].double() - r[n]).abs().max().item()
+        for name, e in ((k["fwd"], abs_err("S", want)),
+                        (k["bwd_img"], abs_err("dh_img", ref)),
+                        (k["bwd_w"], abs_err("dW2", ref)),
+                        (k["bwd_reduce"], max(abs_err("db1", ref),
+                                              abs_err("db2", ref),
+                                              abs_err("dw3", want)))):
+            worst[name] = max(worst[name], e)
+        del got, args, bargs, masked, ref, want
     return worst
 
 
@@ -785,26 +1014,41 @@ def time_buckets(buckets=PRODUCTION_SEQ_BUCKETS) -> dict:
 
 
 def critic_bounds(n_img, n_txt, hidden, splits) -> dict:
-    """{kind: (ms, 'bytes' | 'operations')} of each critic kernel, and
-    'bwd' for the whole backward.  One pair product is 2·P·H1·H2 f32
-    FLOP at 67 TFLOP/s; the forward does one, each rows kernel and the dW2
-    kernel two, and the whole backward cannot do fewer than three (the z2
-    recompute, dt, dW2).  Their bytes (h rows, W2, g, S, the gradients:
-    tens of MB) are far below.  The sums kernel moves bytes only: the
-    partials and dh_img read once, the gradients written once."""
+    """{kind: (ms, 'bytes' | 'operations', ms on the CUDA cores)} of each
+    critic kernel, and 'bwd' for the whole backward.  One pair product is
+    2·P·H1·H2 float32 FLOP; the least time for it at float32 accuracy is
+    3xTF32 on the tensor cores (three TF32 products at 494.7 TFLOP/s); the
+    third number is the same products at the 67 TFLOP/s float32 rate outside
+    them, the rate rows 5 and 7 run on.  The forward does one product,
+    bwd_img two (z2, dt), bwd_w one (dW2), bwd_txt two, and the whole
+    backward cannot do fewer than three.  Bytes: h rows, W2, g, S, the
+    gradients, and bwd_img's z2 bits (written once, read once by bwd_w) and
+    dW2 partials; they are far below.  The sums kernel moves bytes only:
+    the partials and dh_img read once, the gradients written once."""
     h1, h2 = hidden
     pairs = n_img * n_txt
-    prod = 2 * pairs * h1 * h2 / PEAK_FLOP_PER_S[torch.float32] * 1e3
+    flop = 2 * pairs * h1 * h2
+    prod = 3 * flop / PEAK_TF32_FLOP_PER_S * 1e3
+    prod_f32 = flop / PEAK_FLOP_PER_S[torch.float32] * 1e3
     io = 4 * ((n_img + n_txt) * h1 + h1 * h2 + 2 * h2 + h1 + 1 + pairs)
-    io_ms = io / HBM_BYTES_PER_S * 1e3
-    out = {kind: (max(n * prod, io_ms), "operations" if n * prod >= io_ms
-                  else "bytes")
-           for kind, n in (("fwd", 1), ("bwd_img", 2), ("bwd_txt", 2),
-                           ("bwd_w", 2), ("bwd", 3))}
-    red = 4 * (splits * (h1 * h2 + 2 * h2 + 1) + n_img * h1
-               + h1 * h2 + h1 + 2 * h2 + 1)
-    out["bwd_reduce"] = (red / HBM_BYTES_PER_S * 1e3, "bytes")
+    bits = 4 * pairs * -(-h2 // 32)
+    parts = -(-n_img // pc._IMG_ROWS) * (2 * h2 + 1)
+    moved = {"fwd": io, "bwd_img": io + bits + 4 * parts,
+             "bwd_w": io + bits + 4 * splits * h1 * h2, "bwd_txt": io,
+             "bwd": io}
+    out = {}
+    for kind, n in (("fwd", 1), ("bwd_img", 2), ("bwd_w", 1),
+                    ("bwd_txt", 2), ("bwd", 3)):
+        io_ms = moved[kind] / HBM_BYTES_PER_S * 1e3
+        out[kind] = (max(n * prod, io_ms), "operations" if n * prod >= io_ms
+                     else "bytes", n * prod_f32)
+    red = 4 * (splits * h1 * h2 + parts + n_img * h1 + h1 * h2 + h1
+               + 2 * h2 + 1)
+    out["bwd_reduce"] = (red / HBM_BYTES_PER_S * 1e3, "bytes", None)
     return out
+
+
+ROW6 = ("bwd_img", "bwd_w", "bwd_reduce")
 
 
 def time_critic(shape=CRITIC_SHAPES[-1], hidden=CRITIC_HIDDEN) -> dict:
@@ -818,37 +1062,54 @@ def time_critic(shape=CRITIC_SHAPES[-1], hidden=CRITIC_HIDDEN) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     args = critic_inputs(*shape, hidden, gen, "cuda")
     bargs = (*args[:6], args[7])
-    dh_img = pc.bwd_rows_kernel(bargs, txt=False)
-    parts = pc.bwd_w_kernel(bargs)
+    splits = pc.bwd_splits(*shape)
+    dh_img = torch.empty(shape[0], hidden[0], device="cuda")
+    vecp = torch.empty(-(-shape[0] // pc._IMG_ROWS), 2 * hidden[1] + 1,
+                       device="cuda")
+    bits = pc.bwd_img_kernel(bargs, dh_img, vecp)
+    dw2p = pc.bwd_w_kernel(bargs, bits, splits)
     calls = {"fwd": lambda: pc.pair_scores(*args[:7]),
-             "bwd_img": lambda: pc.bwd_rows_kernel(bargs, txt=False),
-             "bwd_txt": lambda: pc.bwd_rows_kernel(bargs, txt=True),
-             "bwd_w": lambda: pc.bwd_w_kernel(bargs),
-             "bwd_reduce": lambda: pc.bwd_reduce_kernel(parts, dh_img)}
+             "bwd_img": lambda: pc.bwd_img_kernel(bargs, dh_img, vecp),
+             "bwd_w": lambda: pc.bwd_w_kernel(bargs, bits, splits),
+             "bwd_reduce": lambda: pc.bwd_reduce_kernel(dw2p, vecp, dh_img),
+             "bwd_txt": lambda: pc.bwd_txt_kernel(bargs)}
     ms = {kind: time_ms(call, iters=CRITIC_TIMED, warmup=1)
           for kind, call in calls.items()}
     plain = {"fwd": time_ms(lambda: pc.pair_scores_plain(
         *args[:7], rows=CRITIC_ROWS), iters=CRITIC_TIMED, warmup=1),
         "bwd": time_ms(lambda: pc.pair_scores_bwd_plain(
             *args, rows=CRITIC_ROWS), iters=CRITIC_TIMED, warmup=1)}
-    bounds = critic_bounds(*shape, hidden, pc.bwd_splits(*shape))
+    bounds = critic_bounds(*shape, hidden, splits)
     out = {}
     for kind in calls:
-        bound_ms, bound_by = bounds[kind]
+        bound_ms, bound_by, cores_ms = bounds[kind]
         out[kind] = dict(ms=ms[kind], plain_ms=plain["fwd" if kind == "fwd"
                                                       else "bwd"],
                          bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=None)
+                         library_ms=None, bound_ms_f32_cores=cores_ms)
+        cores = "" if cores_ms is None else (
+            f"; {cores_ms:.4f} ms at the float32 rate outside the tensor "
+            f"cores ({100 * cores_ms / ms[kind]:.1f}%)")
         print(f"  {pc.KERNELS[kind]} {shape + hidden}: kernel {ms[kind]:.4f}"
-              f" ms, bound {bound_ms:.4f} ms ({bound_by}), kernel at "
-              f"{100 * bound_ms / ms[kind]:.1f}% of the bound  [{card}]")
+              f" ms, bound {bound_ms:.4f} ms ({bound_by}, 3xTF32), kernel at "
+              f"{100 * bound_ms / ms[kind]:.1f}% of the bound{cores}  "
+              f"[{card}]")
+    row6 = sum(ms[k] for k in ROW6)
+    row6_bound = sum(bounds[k][0] for k in ROW6)
+    row6_cores = sum(bounds[k][2] or 0.0 for k in ROW6)
+    print(f"  row 6 (bwd_img + bwd_w + bwd_reduce) {shape + hidden}: "
+          f"{row6:.4f} ms, 3xTF32 bound {row6_bound:.4f} ms "
+          f"({100 * row6_bound / row6:.1f}%), float32 CUDA-core bound "
+          f"{row6_cores:.4f} ms ({100 * row6_cores / row6:.1f}%)  [{card}]")
     bwd_ms = sum(ms[k] for k in calls if k != "fwd")
     print(f"  critic backward {shape + hidden}: four kernels {bwd_ms:.4f} ms "
-          f"(6 pair products), bound of the backward {bounds['bwd'][0]:.4f} "
-          f"ms (3 products); plain forward {plain['fwd']:.4f} ms, plain "
+          f"(5 pair products), bound of the backward {bounds['bwd'][0]:.4f} "
+          f"ms (3 products in 3xTF32; {bounds['bwd'][2]:.4f} ms at the "
+          f"float32 rate); plain forward {plain['fwd']:.4f} ms, plain "
           f"backward {plain['bwd']:.4f} ms ({CRITIC_ROWS} image rows a "
           f"block)  [{card}]")
-    del args, bargs, dh_img, parts
+    out["bwd_img"]["row6_ms"] = row6
+    del args, bargs, dh_img, bits, vecp, dw2p
 
     # the factorized path beside the kernel path, from 768-d embeddings;
     # the factorized forward at 2048 needs three (n, n, H1) f32 tensors
@@ -1020,16 +1281,25 @@ def time_stem(shape=STEM_SHAPES[0]) -> dict:
             ms_events = time_ms(kernel, iters=STEM_TIMED)
             plain_ms = device_ms(plain, iters=3, warmup=1)
             library_ms = device_ms(library, iters=STEM_TIMED)
+            # cuDNN's own autotuned choice beside its heuristic one
+            torch.backends.cudnn.benchmark = True
+            try:
+                tuned_ms = device_ms(library, iters=STEM_TIMED)
+            finally:
+                torch.backends.cudnn.benchmark = False
             bound_ms, bound_by = bounds[kind]
             out[kind, dt] = dict(ms=ms, plain_ms=plain_ms,
                                  library_ms=library_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by, ms_events=ms_events)
+                                 bound_by=bound_by, ms_events=ms_events,
+                                 library_tuned_ms=tuned_ms)
             print(f"  {sc.KERNELS[kind]} {shape} {dt}: kernel {ms:.4f} ms "
                   f"(device; {ms_events:.4f} ms back to back under CUDA "
                   f"events), plain {plain_ms:.4f} ms, cuDNN "
-                  f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-                  f"kernel at {100 * bound_ms / ms:.1f}% of the bound  "
-                  f"[{card}]")
+                  f"{library_ms:.4f} ms (kernel / cuDNN "
+                  f"{ms / library_ms:.3f}; {tuned_ms:.4f} ms with "
+                  f"cudnn.benchmark, kernel / it {ms / tuned_ms:.3f}), bound "
+                  f"{bound_ms:.4f} ms ({bound_by}), kernel at "
+                  f"{100 * bound_ms / ms:.1f}% of the bound  [{card}]")
         del x, dy, xc
         torch.cuda.empty_cache()
     return out
@@ -1707,6 +1977,21 @@ def drive_grad_cache(device, bert_kw=TRAIN_BERT, configs=GC_CONFIGS,
                   f"{CRITIC_MEMORY_LIMIT / 2 ** 30:.0f} GiB)  [{card}]")
             if not out["critic_bytes"] < CRITIC_MEMORY_LIMIT:
                 raise AssertionError(f"critic memory {out['critic_bytes']}")
+            # twice the batch: 1 GiB of z2 bits in one launch, bounded to
+            # BITS_BUDGET_BYTES by running row 6 over ranges of image rows
+            big = 2 * batch
+            out["critic_bytes_big"] = critic_memory(
+                state.critic_params, big, BERT_BASE["hidden_size"], device)
+            print(f"  critic forward + backward at B={big}: "
+                  f"{out['critic_bytes_big'] / 2 ** 20:.1f} MiB of device "
+                  f"memory, row 6 in "
+                  f"{-(-big // pc.bwd_chunk_rows(big, big, CRITIC_HIDDEN[1]))}"
+                  f" launches of bwd_img and bwd_w (z2 bits at most "
+                  f"{pc.BITS_BUDGET_BYTES / 2 ** 20:.0f} MiB a launch; limit "
+                  f"{CRITIC_MEMORY_LIMIT / 2 ** 30:.0f} GiB)  [{card}]")
+            if not out["critic_bytes_big"] < CRITIC_MEMORY_LIMIT:
+                raise AssertionError(f"critic memory at B={big}: "
+                                     f"{out['critic_bytes_big']}")
             if direct_peak is not None and not peak <= 2 * direct_peak:
                 raise AssertionError(f"GradCache peak {peak} > twice the "
                                      f"B=64 direct step's {direct_peak}")
@@ -2313,6 +2598,8 @@ def main() -> int:
     print("== phase 2: kernels against their plain versions")
     checked = check_kernels("cuda")
     critic_worst = check_critic("cuda")
+    for name, err in check_critic_normal("cuda").items():
+        critic_worst[name] = max(critic_worst[name], err)
     ffn_worst = check_ffn("cuda")
     stem_worst = check_stem("cuda")
     print(f"== phase 3: timing at (64, 12, 320, 64), at 2048 x 2048 pairs, "
@@ -2395,7 +2682,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": CRITIC_SRC[kind][0],
             "replaces": CRITIC_SRC[kind][1], "launches": launches(name),
-            "max_abs_err": critic_worst[name], **critic_times[kind]})
+            "max_abs_err": critic_worst[name], **critic_times[kind],
+            **({"sass_hmma": hmma[name]} if name in hmma else {})})
     kernels[-len(pc.KERNELS)]["factorized_ms"] = critic_times["yardstick"]
     # the fused FFN kernels: the bfloat16 numbers first (the production
     # preset's dtype), the float32 ones under "f32"

@@ -28,12 +28,19 @@
 // move: the forward reads x and writes y, 75.5 MB in bfloat16 (22.5 us at
 // 3.35 TB/s) or 151 MB in float32 (45.1 us); dW reads x and dy, dx reads
 // dy and writes dx, the same bytes.  Bytes bound all three; tensor cores
-// have nothing to do here.  The design is about coalesced traffic:
-// 64 x 4 threads, neighbouring threads on neighbouring columns, so each
-// channel plane of y and dy is read or written in whole rows of 64 pixels;
-// the 72 weights in registers; the forward and dx tiles ((16+2) x (64+2)
-// pixels, of one channel or of all 8) staged in shared memory, so each
-// input pixel is read from device memory about once.
+// have nothing to do here.  The design is about coalesced traffic.  The
+// forward and dW: 64 x 4 threads, neighbouring threads on neighbouring
+// columns, so each channel plane of y and dy is read or written in whole
+// rows of 64 pixels; the 72 weights in registers; the forward's tile
+// ((16+2) x (64+2) pixels) staged in shared memory, so each input pixel is
+// read from device memory about once.  dx reads 8 channels for every pixel
+// it writes, and its 8-channel tile with a division and a modulus per
+// staged value made it instruction-bound (2.1 x cuDNN's time in bfloat16);
+// it now keeps a rolling 3-row window in registers instead: each lane owns
+// 4 adjacent pixels, loads them with one 16- or 8-byte vector load per
+// channel and row, takes the halo columns from its neighbours by shuffle,
+// and walks up the rows (see dx_kernel), reading each dy row once but for
+// two halo rows per 16.
 //
 // Interface: plain extern "C", raw device pointers and the stream; each
 // entry point returns the cudaError_t of its launches
@@ -49,11 +56,16 @@ constexpr int C = 8;          // the stem's output channels
 constexpr int K = 9;          // taps
 constexpr int TW = 64;        // tile columns = threads in x
 constexpr int TY = 4;         // threads in y
-constexpr int TH = 16;        // forward / dx tile rows
+constexpr int TH = 16;        // forward tile rows
 constexpr int DW_TH = 64;     // dW rows per block
 constexpr int THREADS = TW * TY;
 constexpr int RED_STRIDE = THREADS + 1;   // dW reduction rows, no conflicts
 constexpr int RED_THREADS = 256;
+constexpr int DX_PX = 4;              // dx: adjacent pixels a lane owns
+constexpr int DX_COLS = 32 * DX_PX;   // a warp's strip of columns
+constexpr int DX_ROWS = 16;           // output rows a warp walks
+constexpr int DX_WARPS = 4;           // warps of a block, stacked in rows
+constexpr int DX_THREADS = 32 * DX_WARPS;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -107,43 +119,190 @@ fwd_kernel(const TI* __restrict__ x, const float* __restrict__ w,
 }
 
 // dx (B, H, W) from dy (B, C, H, W): the transposed stencil, summed over
-// (dr, dc, c) in that order from zero, with the forward's tiling; the tile
-// holds dy rows r0-1 .. r0+TH and columns s0-1 .. s0+TW of every channel.
+// (dr, dc, c) in that order from zero.  A warp owns a strip of DX_COLS
+// columns and DX_ROWS output rows of one image; each lane owns DX_PX
+// adjacent pixels.  The warp walks dy UP its rows (r from the strip's last
+// row + 1 to its first row − 1), one vector load per channel and lane
+// (16 bytes in float32, 8 in bfloat16), the two halo columns from the
+// neighbouring lanes by shuffle (the strip's edge lanes load theirs).  Row
+// r is the dr = 0 row of output r − 1, the dr = 1 row of output r and the
+// dr = 2 row of output r + 1, so walking upwards each output receives its
+// terms in the plain version's order; three accumulators a pixel (outputs
+// r + 1, r, r − 1) roll down as r does, and output r + 1 is stored when row
+// r is in.  dy rows are read once but for the two halo rows per strip; no
+// division, no shared tile.
+// A lane's DX_PX = 4 pixels of one dy row and its halo pixel, kept as the
+// raw 32-bit words they were loaded as (one aligned 16- or 8-byte vector
+// load where the group lies inside and ``vec``: W and the base multiples of
+// the vector; else element by element, zero past the edges), so that a
+// prefetched row costs no instruction until it is used.
+template <typename T>
+struct RawPx;
+
+template <>
+struct RawPx<float> {
+  static constexpr int WORDS = 4;
+  __device__ static void load(const float* row, int j0, int W, bool vec,
+                              unsigned (&w)[WORDS]) {
+    if (vec && j0 + DX_PX <= W) {
+      const uint4 v = *reinterpret_cast<const uint4*>(row + j0);
+      w[0] = v.x;
+      w[1] = v.y;
+      w[2] = v.z;
+      w[3] = v.w;
+    } else {
+#pragma unroll
+      for (int q = 0; q < DX_PX; ++q)
+        w[q] = j0 + q < W ? __float_as_uint(row[j0 + q]) : 0u;
+    }
+  }
+  __device__ static unsigned one(const float* row, int j) {
+    return __float_as_uint(row[j]);
+  }
+  __device__ static float px(const unsigned (&w)[WORDS], int q) {
+    return __uint_as_float(w[q]);
+  }
+  __device__ static float halo(unsigned h) { return __uint_as_float(h); }
+};
+
+template <>
+struct RawPx<__nv_bfloat16> {  // two pixels a word, the lower one low
+  static constexpr int WORDS = 2;
+  __device__ static void load(const __nv_bfloat16* row, int j0, int W,
+                              bool vec, unsigned (&w)[WORDS]) {
+    if (vec && j0 + DX_PX <= W) {
+      const uint2 v = *reinterpret_cast<const uint2*>(row + j0);
+      w[0] = v.x;
+      w[1] = v.y;
+    } else {
+      const unsigned short* s = reinterpret_cast<const unsigned short*>(row);
+      w[0] = w[1] = 0u;
+#pragma unroll
+      for (int q = 0; q < DX_PX; ++q)
+        if (j0 + q < W) w[q / 2] |= (unsigned)s[j0 + q] << (16 * (q % 2));
+    }
+  }
+  __device__ static unsigned one(const __nv_bfloat16* row, int j) {
+    return reinterpret_cast<const unsigned short*>(row)[j];
+  }
+  __device__ static float px(const unsigned (&w)[WORDS], int q) {
+    return __uint_as_float(q % 2 ? w[q / 2] & 0xFFFF0000u : w[q / 2] << 16);
+  }
+  __device__ static float halo(unsigned h) { return __uint_as_float(h << 16); }
+};
+
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ unsigned bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16(v));
+}
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p,
+                                          const float (&v)[4]) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(bf16_bits(v[0]) | bf16_bits(v[1]) << 16,
+                 bf16_bits(v[2]) | bf16_bits(v[3]) << 16);
+}
+
+template <typename T>
+__device__ __forceinline__ void store_px(T* row, int j0, int W, bool vec,
+                                         const float (&val)[DX_PX]) {
+  if (vec && j0 + DX_PX <= W) {
+    store_vec(row + j0, val);
+  } else {
+#pragma unroll
+    for (int q = 0; q < DX_PX; ++q)
+      if (j0 + q < W) store(row + j0 + q, val[q]);
+  }
+}
+
 template <typename TG, typename TO>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(DX_THREADS)
 dx_kernel(const TG* __restrict__ dy, const float* __restrict__ w,
-          TO* __restrict__ dx, int H, int W) {
-  __shared__ float tile[C][TH + 2][TW + 2];
-  const int b = blockIdx.z, r0 = blockIdx.y * TH, s0 = blockIdx.x * TW;
-  const int tid = threadIdx.y * TW + threadIdx.x;
+          TO* __restrict__ dx, int H, int W, int vec_in, int vec_out) {
+  using Raw = RawPx<TG>;
+  __shared__ __align__(16) float ws[K][C];     // w[c, dr, dc] at [dr·3+dc][c]
+  const int tid = threadIdx.x, lane = tid % 32;
+  if (tid < C * K) ws[tid % K][tid / K] = w[tid];
+  __syncthreads();
+  const int b = blockIdx.z;
+  const int j0 = blockIdx.x * DX_COLS + lane * DX_PX;
+  const int i0 = (blockIdx.y * DX_WARPS + tid / 32) * DX_ROWS;
+  if (i0 >= H) return;                         // the whole warp
+  const int i1 = min(i0 + DX_ROWS, H);
   const size_t plane = (size_t)H * W;
   const TG* gb = dy + (size_t)b * C * plane;
-  for (int i = tid; i < C * (TH + 2) * (TW + 2); i += THREADS) {
-    const int c = i / ((TH + 2) * (TW + 2));
-    const int rem = i % ((TH + 2) * (TW + 2));
-    const int rr = rem / (TW + 2), cc = rem % (TW + 2);
-    const int r = r0 - 1 + rr, s = s0 - 1 + cc;
-    tile[c][rr][cc] = (r >= 0 && r < H && s >= 0 && s < W)
-                          ? to_f(gb[c * plane + (size_t)r * W + s]) : 0.f;
-  }
-  float wr[C * K];
+  TO* xb = dx + (size_t)b * plane;
+  // the halo column an edge lane loads itself: lane 0 the strip's left
+  // neighbour, lane 31 its right one; the others take theirs by shuffle
+  const int jh = lane == 0 ? j0 - 1 : j0 + DX_PX;
+  const bool edge = (lane == 0 || lane == 31) && jh >= 0 && jh < W;
+
+  // row r: raw words of the lane's pixels and its halo pixel, per channel
+  unsigned cur[C][Raw::WORDS], nxt[C][Raw::WORDS], hcur[C], hnxt[C];
+  auto load_row = [&](int r, unsigned (&dst)[C][Raw::WORDS],
+                      unsigned (&hal)[C]) {
+    const bool in = r >= 0 && r < H;
 #pragma unroll
-  for (int j = 0; j < C * K; ++j) wr[j] = w[j];
-  __syncthreads();
-  const int j = s0 + threadIdx.x;
-  for (int ii = threadIdx.y; ii < TH; ii += TY) {
-    const int i = r0 + ii;
-    if (i >= H || j >= W) continue;
-    float acc = 0.f;
+    for (int c = 0; c < C; ++c) {
+      const TG* row = gb + c * plane + (size_t)(in ? r : 0) * W;
+      if (in) {
+        Raw::load(row, j0, W, vec_in, dst[c]);
+      } else {
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int dr = k / 3, dc = k % 3;
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        acc = __fadd_rn(acc, __fmul_rn(tile[c][ii + 2 - dr][threadIdx.x + 2 - dc],
-                                       wr[c * K + k]));
+        for (int e = 0; e < Raw::WORDS; ++e) dst[c][e] = 0u;
+      }
+      hal[c] = in && edge ? Raw::one(row, jh) : 0u;
     }
-    store(dx + (size_t)b * plane + (size_t)i * W + j, acc);
+  };
+  float acc[3][DX_PX];                         // outputs r + 1, r, r − 1
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int q = 0; q < DX_PX; ++q) acc[a][q] = 0.f;
+  load_row(i1, cur, hcur);
+  for (int r = i1; r >= i0 - 1; --r) {
+    if (r > i0 - 1) load_row(r - 1, nxt, hnxt);  // in flight during the sums
+    // v[c][1 + q]: pixel j0 + q, v[c][0] and v[c][DX_PX + 1] the halo
+    // columns j0 − 1 and j0 + DX_PX
+    float v[C][DX_PX + 2];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+#pragma unroll
+      for (int q = 0; q < DX_PX; ++q) v[c][1 + q] = Raw::px(cur[c], q);
+      const float left = __shfl_up_sync(0xffffffffu, v[c][DX_PX], 1);
+      const float right = __shfl_down_sync(0xffffffffu, v[c][1], 1);
+      const float own = Raw::halo(hcur[c]);
+      v[c][0] = lane == 0 ? own : left;
+      v[c][DX_PX + 1] = lane == 31 ? own : right;
+    }
+    // acc[2 - dr] receives its dr terms: (dc, c) in order
+#pragma unroll
+    for (int dr = 0; dr < 3; ++dr)
+#pragma unroll
+      for (int dc = 0; dc < 3; ++dc)
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const float wk = ws[dr * 3 + dc][c];
+#pragma unroll
+          for (int q = 0; q < DX_PX; ++q)
+            acc[2 - dr][q] =
+                __fadd_rn(acc[2 - dr][q], __fmul_rn(v[c][q + 2 - dc], wk));
+        }
+    if (r + 1 >= i0 && r + 1 < i1)
+      store_px(xb + (size_t)(r + 1) * W, j0, W, vec_out, acc[0]);
+#pragma unroll
+    for (int q = 0; q < DX_PX; ++q) {
+      acc[0][q] = acc[1][q];
+      acc[1][q] = acc[2][q];
+      acc[2][q] = 0.f;
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+#pragma unroll
+      for (int e = 0; e < Raw::WORDS; ++e) cur[c][e] = nxt[c][e];
+      hcur[c] = hnxt[c];
+    }
   }
 }
 
@@ -234,8 +393,14 @@ cudaError_t launch_fwd(const void* x, const void* w, void* y, int B, int H,
 template <typename A, typename Bt>
 cudaError_t launch_dx(const void* dy, const void* w, void* dx, int B, int H,
                       int W, cudaStream_t st) {
-  dx_kernel<A, Bt><<<tiles(B, H, W, TH), dim3(TW, TY), 0, st>>>(
-      (const A*)dy, (const float*)w, (Bt*)dx, H, W);
+  // vector loads and stores need W and the base a multiple of the vector
+  const bool vec = W % DX_PX == 0;
+  const int vec_in = vec && (size_t)dy % (DX_PX * sizeof(A)) == 0;
+  const int vec_out = vec && (size_t)dx % (DX_PX * sizeof(Bt)) == 0;
+  const dim3 grid((W + DX_COLS - 1) / DX_COLS,
+                  (H + DX_WARPS * DX_ROWS - 1) / (DX_WARPS * DX_ROWS), B);
+  dx_kernel<A, Bt><<<grid, DX_THREADS, 0, st>>>(
+      (const A*)dy, (const float*)w, (Bt*)dx, H, W, vec_in, vec_out);
   return cudaGetLastError();
 }
 

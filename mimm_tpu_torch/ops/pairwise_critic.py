@@ -11,9 +11,18 @@ emb_txt·W1[d:]`` as plain products under autograd, then ``_PairScores``, a
 float32 as JAX casts them.
 
 For CUDA tensors its forward launches ``csrc/pairwise_critic_fwd.cu`` and
-its backward the four kernels of ``csrc/pairwise_critic_bwd.cu`` (dh_img,
-dh_txt, the weight-gradient partials, their fixed-order sums); no buffer of
-B_img·B_txt·H1 elements exists on that path.  For CPU tensors they are
+its backward the four kernels of ``csrc/pairwise_critic_bwd.cu``.  Row 6,
+the JAX ``_bwd_img_kernel``, runs on the tensor cores in 3xTF32 (each
+float32 operand split into two tf32 parts, three ``mma.sync`` a product,
+about float32's accuracy) as three pair products: ``bwd_img`` recomputes z2
+once and gives dh_img, db2, dw3, db3 and the z2 > 0 bits (one bit a pair
+and H2 column, B_img·B_txt·H2/8 bytes, 268 MB at 2048²), ``bwd_w`` the dW2
+partials from those bits, ``bwd_reduce`` the fixed-order sums.  Past
+``BITS_BUDGET_BYTES`` of bits, ``bwd_img`` and ``bwd_w`` run over ranges of
+image rows in turn (``bwd_chunk_rows``), ``bwd_w`` adding into the same
+partials, so the bits stay within that budget at any batch.  Row 7,
+``bwd_txt`` (dh_txt), is the first design on the CUDA cores.  No buffer of
+B_img·B_txt·H1 floats exists on that path.  For CPU tensors they are
 ``pair_scores_plain`` and ``pair_scores_bwd_plain``, the same two functions
 in plain PyTorch, the backward written out with the kernels' formulas.
 There is no fallback from CUDA to the plain versions: a CUDA call launches
@@ -41,14 +50,18 @@ LAUNCHES: collections.Counter = collections.Counter()
 FWD_SOURCE = "pairwise_critic_fwd"    # csrc/pairwise_critic_fwd.cu
 BWD_SOURCE = "pairwise_critic_bwd"    # csrc/pairwise_critic_bwd.cu
 KERNELS = {"fwd": "pairwise_critic_fwd",            # row 5
-           "bwd_img": "pairwise_critic_bwd_img",    # row 6: dh_img
-           "bwd_w": "pairwise_critic_bwd_w",        # row 6: dW2, db2, dw3
+           "bwd_img": "pairwise_critic_bwd_img",    # row 6: dh_img, db2, dw3
+           "bwd_w": "pairwise_critic_bwd_w",        # row 6: dW2
            "bwd_reduce": "pairwise_critic_bwd_reduce",  # row 6: the sums
            "bwd_txt": "pairwise_critic_bwd_txt"}    # row 7: dh_txt
 MAX_H1 = 1024
 MAX_H2 = 512
 MAX_SPLITS = 16           # pair ranges of the dW2 kernel (scratch per split)
-_W_TILE_PAIRS = 256
+_W_SPLIT_PAIRS = 256      # fewest pairs a range
+_IMG_ROWS = 4             # image rows a bwd_img block owns (csrc IT)
+# the z2 > 0 bits of one bwd_img / bwd_w launch: all of 2048 x 2048 pairs at
+# H2 = 512; larger batches take several launches (bwd_chunk_rows)
+BITS_BUDGET_BYTES = 2 ** 28
 
 
 def reset_launch_counts() -> None:
@@ -135,16 +148,20 @@ def _launched(err: int, name: str, shape) -> None:
     LAUNCHES[name] += 1
 
 
+def _typed(fn, pointers: int, ints: int):
+    fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _forward_kernel(h_img, h_txt, b1, w2, b2, w3, b3) -> torch.Tensor:
     from mimm_tpu_torch.ops import _build
 
     args = (h_img, h_txt, b1, w2, b2, w3, b3)
     _check_kernel_inputs(args)
     (ni, h1), nj, h2 = h_img.shape, h_txt.shape[0], w2.shape[1]
-    fn = _build.load(FWD_SOURCE).mimm_pairwise_critic_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _typed(_build.load(FWD_SOURCE).mimm_pairwise_critic_fwd, 8, 4)
     out = torch.empty(ni, nj, dtype=torch.float32, device=h_img.device)
     err = _launch(fn, h_img, *(t.data_ptr() for t in args), out.data_ptr(),
                   ni, nj, h1, h2)
@@ -154,8 +171,17 @@ def _forward_kernel(h_img, h_txt, b1, w2, b2, w3, b3) -> torch.Tensor:
 
 def bwd_splits(n_img: int, n_txt: int) -> int:
     """Pair ranges of the dW2 kernel: enough blocks to fill the card at the
-    GradCache shape, never more ranges than tiles of 256 pairs."""
-    return max(1, min(MAX_SPLITS, -(-n_img * n_txt // _W_TILE_PAIRS)))
+    GradCache shape, never more ranges than chunks of 256 pairs."""
+    return max(1, min(MAX_SPLITS, -(-n_img * n_txt // _W_SPLIT_PAIRS)))
+
+
+def bwd_chunk_rows(n_img: int, n_txt: int, h2: int) -> int:
+    """Image rows of one bwd_img / bwd_w launch: all of them while their
+    z2 > 0 bits fit BITS_BUDGET_BYTES, else the most rows, a multiple of
+    bwd_img's block, that fit (at least one block)."""
+    per_row = n_txt * -(-h2 // 32) * 4
+    rows = BITS_BUDGET_BYTES // per_row // _IMG_ROWS * _IMG_ROWS
+    return min(n_img, max(_IMG_ROWS, rows))
 
 
 def _bwd_lib(args):
@@ -170,71 +196,101 @@ def _bwd_lib(args):
     return _build.load(BWD_SOURCE), (ni, nj, h1, h2)
 
 
-def _empty(device, *shape) -> torch.Tensor:
-    return torch.empty(*shape, dtype=torch.float32, device=device)
+def _empty(device, *shape, dtype=torch.float32) -> torch.Tensor:
+    return torch.empty(*shape, dtype=dtype, device=device)
 
 
-def bwd_rows_kernel(args, txt: bool) -> torch.Tensor:
-    """dh_img (``txt`` False, row 6) or dh_txt (True, row 7)."""
-    lib, shape = _bwd_lib(args)
-    fn = lib.mimm_pairwise_critic_bwd_rows
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    dh = _empty(args[0].device, shape[1] if txt else shape[0], shape[2])
+def bwd_img_kernel(args, dh: torch.Tensor, vecp: torch.Tensor):
+    """Row 6's tensor-core kernel: writes dh_img into ``dh`` (B_img, H1)
+    and the per-block partials of db2, dw3 and db3 into ``vecp``
+    (ceil(B_img/4), 2·H2 + 1); returns the z2 > 0 bits (B_img·B_txt,
+    ceil(H2/32)) int32."""
+    lib, (ni, nj, h1, h2) = _bwd_lib(args)
+    if not (dh.dtype == vecp.dtype == torch.float32 and dh.is_contiguous()
+            and vecp.is_contiguous() and tuple(dh.shape) == (ni, h1)
+            and tuple(vecp.shape) == (-(-ni // _IMG_ROWS), 2 * h2 + 1)):
+        raise ValueError(f"dh and vecp must be contiguous float32 {(ni, h1)} "
+                         f"and {(-(-ni // _IMG_ROWS), 2 * h2 + 1)}")
+    fn = _typed(lib.mimm_pairwise_critic_bwd_img, 10, 4)
+    bits = _empty(dh.device, ni * nj, -(-h2 // 32), dtype=torch.int32)
     _launched(_launch(fn, dh, *(t.data_ptr() for t in args), dh.data_ptr(),
-                      *shape, int(txt)),
-              KERNELS["bwd_txt" if txt else "bwd_img"], shape)
+                      bits.data_ptr(), vecp.data_ptr(), ni, nj, h1, h2),
+              KERNELS["bwd_img"], (ni, nj, h1, h2))
+    return bits
+
+
+def bwd_txt_kernel(args) -> torch.Tensor:
+    """Row 7: dh_txt (B_txt, H1)."""
+    lib, shape = _bwd_lib(args)
+    fn = _typed(lib.mimm_pairwise_critic_bwd_txt, 8, 4)
+    dh = _empty(args[0].device, shape[1], shape[2])
+    _launched(_launch(fn, dh, *(t.data_ptr() for t in args), dh.data_ptr(),
+                      *shape), KERNELS["bwd_txt"], shape)
     return dh
 
 
-def bwd_w_kernel(args) -> list:
-    """Per-split partials [dW2 (S, H1, H2), db2 (S, H2), dw3 (S, H2), db3
-    (S)] of row 6's weight gradients."""
+def bwd_w_kernel(args, bits: torch.Tensor, splits: int,
+                 dw2p: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Row 6's dW2 kernel: per-split partials (splits, H1, H2) of dW2 from
+    the bits of ``bwd_img_kernel``, in a new tensor, or added to ``dw2p``'s
+    values when it is given."""
     lib, (ni, nj, h1, h2) = _bwd_lib(args)
-    fn = lib.mimm_pairwise_critic_bwd_w
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    splits = bwd_splits(ni, nj)
-    dev = args[0].device
-    parts = [_empty(dev, splits, h1, h2), _empty(dev, splits, h2),
-             _empty(dev, splits, h2), _empty(dev, splits)]
-    _launched(_launch(fn, parts[0], *(t.data_ptr() for t in args),
-                      *(p.data_ptr() for p in parts), ni, nj, h1, h2, splits),
+    if bits.dtype != torch.int32 or tuple(bits.shape) != (ni * nj,
+                                                          -(-h2 // 32)):
+        raise ValueError(f"bits must be int32 {(ni * nj, -(-h2 // 32))}, got "
+                         f"{bits.dtype} {tuple(bits.shape)}")
+    accumulate = dw2p is not None
+    if dw2p is None:
+        dw2p = _empty(args[0].device, splits, h1, h2)
+    elif tuple(dw2p.shape) != (splits, h1, h2) or not dw2p.is_contiguous():
+        raise ValueError(f"dw2p must be contiguous {(splits, h1, h2)}")
+    fn = _typed(lib.mimm_pairwise_critic_bwd_w, 7, 6)
+    h_img, h_txt, b1, _, _, w3, g = args
+    _launched(_launch(fn, dw2p, *(t.data_ptr() for t in (h_img, h_txt, b1, w3,
+                                                         g, bits, dw2p)),
+                      ni, nj, h1, h2, splits, int(accumulate)),
               KERNELS["bwd_w"], (ni, nj, h1, h2))
-    return parts
+    return dw2p
 
 
-def bwd_reduce_kernel(parts, dh_img: torch.Tensor):
+def bwd_reduce_kernel(dw2p: torch.Tensor, vecp: torch.Tensor,
+                      dh_img: torch.Tensor):
     """(dW2, db1, db2, dw3, db3): the partials' sums and db1 = Σ_i
     dh_img[i], in a fixed order."""
     from mimm_tpu_torch.ops import _build
 
-    splits, h1, h2 = parts[0].shape
+    splits, h1, h2 = dw2p.shape
     if not all(t.dtype == torch.float32 and t.is_contiguous()
-               for t in [*parts, dh_img]) or dh_img.shape[1] != h1:
+               for t in (dw2p, vecp, dh_img)) or dh_img.shape[1] != h1 \
+            or vecp.shape[1] != 2 * h2 + 1:
         raise ValueError("partials and dh_img must be contiguous float32 "
-                         "with matching H1")
-    fn = _build.load(BWD_SOURCE).mimm_pairwise_critic_bwd_reduce
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+                         "with matching H1 and H2")
+    fn = _typed(_build.load(BWD_SOURCE).mimm_pairwise_critic_bwd_reduce, 8, 5)
     dev = dh_img.device
     outs = [_empty(dev, h1, h2), _empty(dev, h1), _empty(dev, h2),
             _empty(dev, h2), _empty(dev, 1)]
-    _launched(_launch(fn, dh_img, *(p.data_ptr() for p in parts),
+    _launched(_launch(fn, dh_img, dw2p.data_ptr(), vecp.data_ptr(),
                       dh_img.data_ptr(), *(t.data_ptr() for t in outs),
-                      splits, dh_img.shape[0], h1, h2),
+                      splits, vecp.shape[0], dh_img.shape[0], h1, h2),
               KERNELS["bwd_reduce"], (dh_img.shape[0], None, h1, h2))
     return outs
 
 
 def _backward_kernel(h_img, h_txt, b1, w2, b2, w3, g):
     args = (h_img, h_txt, b1, w2, b2, w3, g)
-    dh_img = bwd_rows_kernel(args, txt=False)
-    dh_txt = bwd_rows_kernel(args, txt=True)
-    dw2, db1, db2, dw3, db3 = bwd_reduce_kernel(bwd_w_kernel(args), dh_img)
+    (ni, h1), nj, h2 = h_img.shape, h_txt.shape[0], w2.shape[1]
+    dh_img = _empty(h_img.device, ni, h1)
+    vecp = _empty(h_img.device, -(-ni // _IMG_ROWS), 2 * h2 + 1)
+    rows, splits, dw2p = bwd_chunk_rows(ni, nj, h2), bwd_splits(ni, nj), None
+    for r0 in range(0, ni, rows):   # whole blocks of image rows, in order
+        r1 = min(ni, r0 + rows)
+        part = (h_img[r0:r1], *args[1:6], g[r0:r1])
+        bits = bwd_img_kernel(part, dh_img[r0:r1],
+                              vecp[r0 // _IMG_ROWS:-(-r1 // _IMG_ROWS)])
+        dw2p = bwd_w_kernel(part, bits, splits, dw2p)
+        del bits                    # at most BITS_BUDGET_BYTES
+    dh_txt = bwd_txt_kernel(args)
+    dw2, db1, db2, dw3, db3 = bwd_reduce_kernel(dw2p, vecp, dh_img)
     return dh_img, dh_txt, db1, dw2, db2, dw3.reshape(w3.shape), db3
 
 

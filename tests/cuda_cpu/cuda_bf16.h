@@ -25,3 +25,5 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
 }
 
 inline __nv_bfloat16 __float2bfloat16_rn(float f) { return __float2bfloat16(f); }
+
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 h) { return h.bits; }

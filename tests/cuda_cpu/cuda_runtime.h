@@ -6,7 +6,7 @@
 // statics, which all threads of the running block share; dynamic shared
 // memory is one buffer filled with NaN at each launch.  The warp-level
 // primitives of mimm_tpu_torch/csrc/warp_mma.cuh (shuffles, ldmatrix,
-// mma.sync m16n8k16 bf16, cp.async, ex2) are given here from the PTX ISA's
+// mma.sync m16n8k16 bf16 and m16n8k8 tf32, cvt.rna.tf32.f32, cp.async, ex2) are given here from the PTX ISA's
 // fragment tables: the 32 lanes of a warp meet at a barrier of their own,
 // post their operands, and each lane computes its own result from all of
 // them.  cp.async is a synchronous copy and its waits do nothing.  Compiled with
@@ -44,6 +44,9 @@ inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
   return {x, y, z, w};
 }
 inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef void* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
@@ -107,6 +110,18 @@ T __shfl_xor_sync(unsigned, T x, int m) {
   emu_warp_gather(x, all);
   return all[emu_lane() ^ (unsigned)m];
 }
+template <typename T>
+T __shfl_up_sync(unsigned, T x, unsigned d) {
+  T all[32];
+  emu_warp_gather(x, all);
+  return emu_lane() >= d ? all[emu_lane() - d] : x;
+}
+template <typename T>
+T __shfl_down_sync(unsigned, T x, unsigned d) {
+  T all[32];
+  emu_warp_gather(x, all);
+  return emu_lane() + d < 32 ? all[emu_lane() + d] : x;
+}
 inline float shfl_xor(float x, int m) { return __shfl_xor_sync(~0u, x, m); }
 inline unsigned shfl_xor(unsigned x, int m) {
   return __shfl_xor_sync(~0u, x, m);
@@ -117,6 +132,53 @@ inline float emu_bf16(unsigned bits16) {
   float f;
   std::memcpy(&f, &u, 4);
   return f;
+}
+
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, 4);
+  return u;
+}
+
+// cvt.rna.tf32.f32: round the low 13 bits to nearest, ties away from zero
+// (the sign is apart, so adding half an ulp to the magnitude and cutting
+// does it); NaN and inf pass as they are
+inline unsigned tf32_rna(float x) {
+  const unsigned u = __float_as_uint(x);
+  if ((u & 0x7F800000u) == 0x7F800000u) return u;
+  return (u + 0x1000u) & ~0x1FFFu;
+}
+
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, d = a·b + d: the
+// products of tf32 values are exact in float32; each lane sums its 8 in k
+// order and adds the sum to d
+inline void mma_tf32_1688(float d[4], const unsigned a[4],
+                          const unsigned b[2]) {
+  struct Frag {
+    unsigned a[4], b[2];
+  } mine{{a[0], a[1], a[2], a[3]}, {b[0], b[1]}}, all[32];
+  emu_warp_gather(mine, all);
+  float A[16][8], B[8][8];
+  for (int l = 0; l < 32; ++l) {
+    const int g = l / 4, t = l % 4;
+    const int rows[4] = {g, g + 8, g, g + 8}, cols[4] = {t, t, t + 4, t + 4};
+    for (int r = 0; r < 4; ++r)
+      A[rows[r]][cols[r]] = __uint_as_float(all[l].a[r] & ~0x1FFFu);
+    B[t][g] = __uint_as_float(all[l].b[0] & ~0x1FFFu);
+    B[t + 4][g] = __uint_as_float(all[l].b[1] & ~0x1FFFu);
+  }
+  const int g = emu_lane() / 4, t = emu_lane() % 4;
+  for (int e = 0; e < 4; ++e) {
+    const int row = g + 8 * (e / 2), col = 2 * t + (e % 2);
+    float acc = 0.f;
+    for (int k = 0; k < 8; ++k) acc += A[row][k] * B[k][col];
+    d[e] += acc;
+  }
 }
 
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, d = a·b + d
@@ -181,6 +243,12 @@ inline void cp_async_16(void* dst, const void* src, bool valid) {
     std::memcpy(dst, src, 16);
   else
     std::memset(dst, 0, 16);
+}
+inline void cp_async_4(void* dst, const void* src, bool valid) {
+  if (valid)
+    std::memcpy(dst, src, 4);
+  else
+    std::memset(dst, 0, 4);
 }
 inline float fast_exp2(float x) { return std::exp2(x); }
 // two floats rounded to bf16 (nearest even), x in the lower half

@@ -8,8 +8,9 @@ called through the port's own kernel wrappers (``fwd_kernel``,
 against the plain versions on the same inputs.
 
 This checks the kernels' indexing, the tiles' borders (shapes whose H and
-W are no multiples of the 16 x 64 tiles), the staging of the dy tile of all
-channels, the fixed-order sums of dW, and the dtype pairs the entry points
+W are no multiples of the 16 x 64 tiles), dx's rolling row window, its
+vector loads and its shuffled halo columns (widths with no full 4-pixel
+vector, ragged 128-column strips, heights below its 16-row walk), the fixed-order sums of dW, and the dtype pairs the entry points
 dispatch, without a card; the card's compiler and every time come only
 from chip_smoke.py.  The forward and dx round each product and each
 running sum as the plain versions do, in their order, so they must agree
@@ -35,6 +36,11 @@ CASES = {"tile": (2, 16, 64, "float32", "float32"),
          "ragged_bf16": (2, 17, 23, "bfloat16", "bfloat16"),
          "mixed": (1, 33, 70, "float32", "bfloat16")}
 DW_TOL = 1e-5
+# dx alone at widths around its 4-pixel vectors and 128-column strips (W =
+# 1, 7: no full vector; 131, 257: a ragged last strip, no vector loads) and
+# heights below its 16-row walk, in both dtypes: (B, H, W)
+DX_SHAPES = [(2, h, w) for h in (1, 3) for w in (1, 7, 131, 257)]
+DX_DTYPES = ("float32", "bfloat16")
 
 
 @pytest.fixture(scope="module")
@@ -55,10 +61,20 @@ def test_emulated_kernels_match_plain(results, case):
     assert got["dw_err"] <= DW_TOL, got
 
 
+@pytest.mark.parametrize("dtype", DX_DTYPES)
+@pytest.mark.parametrize("shape", DX_SHAPES, ids=str)
+def test_emulated_dx_bit_equal_at_ragged_widths(results, shape, dtype):
+    if "skip" in results:
+        pytest.skip(results["skip"])
+    assert results["dx_sweep"][f"{shape} {dtype}"] is True
+
+
 def test_emulated_kernels_launch_once_per_call(results):
     if "skip" in results:
         pytest.skip(results["skip"])
     assert results["launches"] == {n: len(CASES) for n in results["kernels"]}
+    assert results["dx_sweep_launches"] == {
+        "shallow_conv_dx": len(DX_SHAPES) * len(DX_DTYPES)}
 
 
 def test_emulated_entry_points_refuse_other_widths(results):
@@ -116,6 +132,18 @@ def _child(job):
             "dw": _error_of(lambda: sc.dw_kernel(x, dy)),
             "dx": _error_of(lambda: sc.dx_kernel(dy, w4, torch.float32))}
         assert dict(sc.LAUNCHES) == meta["launches"]
+        sc.reset_launch_counts()
+        meta["dx_sweep"] = {}
+        for shape in DX_SHAPES:
+            for dt in DX_DTYPES:
+                gen = torch.Generator().manual_seed(shape[1] * shape[2])
+                weight = torch.randn(8, 1, 3, 3, generator=gen) * 0.5
+                dy = torch.randn(shape[0], 8, *shape[1:], generator=gen)
+                dy = dy.to(getattr(torch, dt))
+                meta["dx_sweep"][f"{shape} {dt}"] = torch.equal(
+                    sc.dx_kernel(dy, weight, dy.dtype),
+                    sc.dx_plain(dy, weight, dy.dtype))
+        meta["dx_sweep_launches"] = dict(sc.LAUNCHES)
     np.savez(os.path.join(job, "out.npz"))
     with open(os.path.join(job, "out.json"), "w") as f:
         json.dump(meta, f)
