@@ -8,10 +8,12 @@ no arguments.  Phases:
 1. versions, the card's name and power limit, and the build of every CUDA
    source of the port (mimm_tpu_torch/csrc, one nvcc each, all started
    together) with ptxas's registers, shared memory and spills, and for
-   each flash kernel and critic backward kernel the count of tensor-core
-   (HMMA) instructions in its SASS (``cuobjdump -sass``; the bfloat16
-   flash kernels and row 6's critic kernels must have some, the float32
-   flash kernels and row 7's critic kernel none);
+   each flash kernel, critic backward kernel and fused FFN forward the
+   count of tensor-core (HMMA) instructions in its SASS (``cuobjdump
+   -sass``; the bfloat16
+   flash kernels, the critic backward's bwd_img, bwd_w and bwd_txt and the
+   bfloat16 fused FFN forward must have some, the float32 flash kernels and
+   the float32 fused FFN forward none);
 2. each kernel against its plain PyTorch version on the card at the shapes
    the serving and training paths give it, with a different number of
    padded keys in each row: the flash forward at dropout rate 0 and 0.1,
@@ -32,7 +34,9 @@ no arguments.  Phases:
    (``scaled_dot_product_attention`` forward, or its backward alone: a
    yardstick the port never calls), the critic kernels at 2048 x 2048
    pairs with the factorized path (plain PyTorch and cuBLAS) as yardstick
-   and each bound in 3xTF32 and at the float32 CUDA-core rate,
+   and each bound on the TF32 tensor cores at float32 accuracy (three
+   TF32 products for a product of two inexact operands, two where one is
+   the exact relu mask) and at the float32 CUDA-core rate,
    the fused FFN kernels at (20480, 768, 3072) with the unfused path
    (``F.linear``, ``F.gelu``, ``F.linear`` and autograd through them), the
    stem kernels at (64, 256, 256) with one cuDNN call each (``F.conv2d``,
@@ -74,10 +78,12 @@ no arguments.  Phases:
 9. ``BertConfig(fused_ffn=True, gelu_tanh=True)`` on both paths at full
    width: the bfloat16 HTTP session with the two knobs in its
    bert_config.json, responses held against a direct forward with the flag
-   off, the fused FFN forward kernel 12 times per text batch; the
-   production-preset MI step with the flag on at L=128 and L=320 (one
-   warm-up and 3 timed steps each, 12 launches of each of the four kernels
-   a step) beside the flag-off steps of phase 5; one float32 L=320 step at
+   off, the fused FFN forward kernel 12 times per text batch, and one
+   flag-on text batch under torch.profiler; the production-preset MI step
+   with the flag on at L=128 and L=320 (one warm-up and 3 timed steps
+   each, 12 launches of each of the four kernels a step) beside the
+   flag-off steps of phase 5, and one L=320 step under torch.profiler
+   (device busy, the kernels that take it); one float32 L=320 step at
    dropout 0 with the flag on against off; two steps with and without
    remat (24 forward launches a step with it);
 10. ``TrainingConfig.production(pallas_stem=True)`` on the training path
@@ -341,17 +347,21 @@ SASS_FUNCTIONS = {
                                                  "bwd_cols_bf16_kernel"), True),
     "flash_attention_bwd_f32": (fa.BWD_SOURCE, ("bwd_rows_kernelIfE",
                                                 "bwd_cols_kernelIfE"), False),
-    # row 6 on the tensor cores (3xTF32), row 7 on the CUDA cores
+    # rows 6 and 7 on the tensor cores (3xTF32)
     "pairwise_critic_bwd_img": (pc.BWD_SOURCE, ("bwd_img_kernel",), True),
     "pairwise_critic_bwd_w": (pc.BWD_SOURCE, ("bwd_w_kernel",), True),
-    "pairwise_critic_bwd_txt": (pc.BWD_SOURCE, ("bwd_txt_kernel",), False)}
+    "pairwise_critic_bwd_txt": (pc.BWD_SOURCE, ("bwd_txt_kernel",), True),
+    # row 8: bf16 on the tensor cores, f32 on the CUDA cores
+    "fused_ffn_fwd_bf16": (ff.FWD_SOURCE, ("fwd_bf16_kernel",), True),
+    "fused_ffn_fwd_f32": (ff.FWD_SOURCE, ("row_tile_kernelIf",), False)}
 
 
 def sass_counts(libs: dict) -> dict:
     """{kernel: tensor-core (HMMA) instructions in its SASS}, from
-    ``cuobjdump -sass`` of the built libraries: the bfloat16 flash kernels
-    and row 6's critic kernels must have some, the float32 flash kernels and
-    row 7's critic kernel none."""
+    ``cuobjdump -sass`` of the built libraries: the bfloat16 flash kernels,
+    the critic backward's kernels (rows 6 and 7) and the bfloat16 fused FFN
+    forward must have some, the float32 flash kernels and the float32 fused
+    FFN forward none."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     per_function = {}
     for src in sorted({lib for lib, _, _ in SASS_FUNCTIONS.values()}):
@@ -579,8 +589,8 @@ def critic_inputs_normal(n_img, n_txt, hidden, gen, device):
 
 
 def critic_masked_bwd(args, bits, rows):
-    """Row 6's gradients with the relu masks the kernels used: t from the
-    float32 z1 = (h_img + h_txt) + b1 they form, the z2 > 0 mask from
+    """Rows 6 and 7's gradients with the relu masks the kernels used: t
+    from the float32 z1 = (h_img + h_txt) + b1 they form, the z2 > 0 mask from
     ``bits`` (``bwd_img``'s), the products in float64 (the judge), float32
     and float32 in one TF32 pass each (the control).  So only the products'
     own rounding is left.  Also the share of z2 > 0 decisions that differ
@@ -591,6 +601,8 @@ def critic_masked_bwd(args, bits, rows):
     variants = {"f64": torch.float64, "f32": torch.float32,
                 "tf32": torch.float32}
     grads = {v: {"dh_img": torch.empty(n_img, h1, dtype=dt,
+                                       device=h_img.device),
+                 "dh_txt": torch.zeros(n_txt, h1, dtype=dt,
                                        device=h_img.device),
                  "dW2": torch.zeros(h1, h2, dtype=dt, device=h_img.device),
                  "db2": torch.zeros(h2, dtype=dt, device=h_img.device)}
@@ -611,7 +623,10 @@ def critic_masked_bwd(args, bits, rows):
                 t, w = t32.to(dt), w2.to(dt)
                 z_pos[v] = (t @ w + b2.to(dt)) > 0
                 dz2 = (g[blk, :, None].to(dt) * w3.reshape(-1).to(dt)) * mask
-                grads[v]["dh_img"][blk] = ((dz2 @ w.T) * (t32 > 0)).sum(1)
+                dz1 = (dz2 @ w.T) * (t32 > 0)
+                grads[v]["dh_img"][blk] = dz1.sum(1)
+                grads[v]["dh_txt"] += dz1.sum(0)
+                del dz1
                 grads[v]["dW2"] += t.reshape(-1, h1).T @ dz2.reshape(-1, h2)
                 grads[v]["db2"] += dz2.sum((0, 1))
                 del t, dz2
@@ -633,8 +648,8 @@ def check_critic_normal(device, shapes=CRITIC_NORMAL_SHAPES,
     flipped relu mask moves a gradient by one pair's term, which no float32
     version avoids (the plain one with TF32 off included): so the products
     and the masks are judged apart.  Raises unless
-      * row 6's gradients (dh_img, db1, dW2, db2) hold CRITIC_TOL,
-        unchanged, against ``critic_masked_bwd`` in float64 with the
+      * rows 6 and 7's gradients (dh_img, dh_txt, db1, dW2, db2) hold
+        CRITIC_TOL, unchanged, against ``critic_masked_bwd`` in float64 with the
         kernels' own masks, and the control (the same in TF32, what one
         TF32 product in place of 3xTF32 gives) fails it at the last shape;
       * ``bwd_img``'s z2 > 0 decisions differ from float64's in at most
@@ -646,13 +661,13 @@ def check_critic_normal(device, shapes=CRITIC_NORMAL_SHAPES,
         once a call.
     Every gradient's error against the plain version in float64 is printed
     beside the plain float32 version's.  The first shape runs again with
-    BITS_BUDGET_BYTES cut so that row 6 takes about CRITIC_CHUNKS launches
-    of bwd_img and bwd_w, whole bwd_img blocks of image rows each.  Returns
-    the largest max abs error per kernel name."""
+    BITS_BUDGET_BYTES cut so that the backward takes about CRITIC_CHUNKS
+    launches of bwd_img, bwd_w and bwd_txt, whole bwd_img blocks of image
+    rows each.  Returns the largest max abs error per kernel name."""
     gen = torch.Generator(device=device).manual_seed(SEED + 16)
     worst = dict.fromkeys(pc.KERNELS.values(), 0.0)
     names = ("S", "dh_img", "dh_txt", "db1", "dW2", "db2", "dw3", "db3")
-    row6 = ("dh_img", "db1", "dW2", "db2")
+    judged = ("dh_img", "dh_txt", "db1", "dW2", "db2")   # rows 6 and 7
     budget = pc.BITS_BUDGET_BYTES
     runs = [(shape, None) for shape in shapes]
     runs.insert(1, (shapes[0], CRITIC_CHUNKS))
@@ -684,7 +699,7 @@ def check_critic_normal(device, shapes=CRITIC_NORMAL_SHAPES,
         masked, flips = critic_masked_bwd(args, bits, rows)
         del bits
         ref = masked.pop("f64")
-        err = {v: {n: _scaled_err(a[n], ref[n]) for n in row6}
+        err = {v: {n: _scaled_err(a[n], ref[n]) for n in judged}
                for v, a in [("kernel", got), *masked.items()]}
         f64 = [a.double() for a in args]
         want = dict(zip(names, [pc.pair_scores_plain(*f64[:7], rows=rows),
@@ -696,7 +711,7 @@ def check_critic_normal(device, shapes=CRITIC_NORMAL_SHAPES,
                for v, a in (("kernel", got), ("f32", plain))}
         del plain
         print(f"  pairwise critic, normal values {(n_img, n_txt, *hidden)}"
-              f"{f' in {chunks} row ranges' if chunks else ''}: row 6 with "
+              f"{f' in {chunks} row ranges' if chunks else ''}: rows 6-7 with "
               f"the kernels' masks against float64: kernels {fmt(err['kernel'])}"
               f"; float32 {fmt(err['f32'])}; control, TF32 "
               f"{fmt(err['tf32'])} (tol {CRITIC_TOL['dh_img']:.0e} for dh, "
@@ -708,9 +723,10 @@ def check_critic_normal(device, shapes=CRITIC_NORMAL_SHAPES,
               f"computes them: kernels {fmt(end['kernel'])}; plain float32 "
               f"{fmt(end['f32'])}; a second backward gives the same bits: "
               f"{rerun}; launches {launched}")
-        want_launches = {k: chunks if chunks and k in ("bwd_img", "bwd_w")
+        want_launches = {k: chunks if chunks and k in ("bwd_img", "bwd_w",
+                                                       "bwd_txt")
                          else 1 for k in pc.KERNELS}
-        bad = [n for n in row6 if not err["kernel"][n] <= CRITIC_TOL[n]]
+        bad = [n for n in judged if not err["kernel"][n] <= CRITIC_TOL[n]]
         bad += [n for n in ("S", "dw3")
                 if not end["kernel"][n] <= CRITIC_TOL[n]]
         # at least one decision's share, so that one flip is no failure
@@ -728,7 +744,7 @@ def check_critic_normal(device, shapes=CRITIC_NORMAL_SHAPES,
         if launched != want_launches:
             raise AssertionError(f"critic launches {launched}, want "
                                  f"{want_launches}")
-        if last and (all(err["tf32"][n] <= CRITIC_TOL[n] for n in row6)
+        if last and (all(err["tf32"][n] <= CRITIC_TOL[n] for n in judged)
                      or flips["tf32"] <= flip_limit):
             raise AssertionError(f"the TF32 control passes at "
                                  f"{(n_img, n_txt)}: {err['tf32']} {flips};"
@@ -738,6 +754,7 @@ def check_critic_normal(device, shapes=CRITIC_NORMAL_SHAPES,
         abs_err = lambda n, r: (got[n].double() - r[n]).abs().max().item()
         for name, e in ((k["fwd"], abs_err("S", want)),
                         (k["bwd_img"], abs_err("dh_img", ref)),
+                        (k["bwd_txt"], abs_err("dh_txt", ref)),
                         (k["bwd_w"], abs_err("dW2", ref)),
                         (k["bwd_reduce"], max(abs_err("db1", ref),
                                               abs_err("db2", ref),
@@ -1016,32 +1033,37 @@ def time_buckets(buckets=PRODUCTION_SEQ_BUCKETS) -> dict:
 def critic_bounds(n_img, n_txt, hidden, splits) -> dict:
     """{kind: (ms, 'bytes' | 'operations', ms on the CUDA cores)} of each
     critic kernel, and 'bwd' for the whole backward.  One pair product is
-    2·P·H1·H2 float32 FLOP; the least time for it at float32 accuracy is
-    3xTF32 on the tensor cores (three TF32 products at 494.7 TFLOP/s); the
-    third number is the same products at the 67 TFLOP/s float32 rate outside
-    them, the rate rows 5 and 7 run on.  The forward does one product,
-    bwd_img two (z2, dt), bwd_w one (dW2), bwd_txt two, and the whole
-    backward cannot do fewer than three.  Bytes: h rows, W2, g, S, the
-    gradients, and bwd_img's z2 bits (written once, read once by bwd_w) and
-    dW2 partials; they are far below.  The sums kernel moves bytes only:
-    the partials and dh_img read once, the gradients written once."""
+    2·P·H1·H2 float32 FLOP.  The least time for it at float32 accuracy is
+    on the TF32 tensor cores (494.7 TFLOP/s): three TF32 products (3xTF32)
+    where both operands are inexact, two where one is exact in tf32, as the
+    relu mask (1.0 or 0.0) is.  The z2 recompute needs three (t·W2); dt =
+    g·(mask·(w3∘W2)ᵀ) and dW2 = w3·((g·t)ᵀ·mask) need two each.  So the
+    forward needs 3 TF32 products, bwd_img 5 (z2, dt), bwd_w 2 (dW2),
+    bwd_txt 2 (dt), and the whole backward no fewer than 7 (z2, dt, dW2).
+    The third number is the pair products (1, 2, 1, 1, 3) at the 67 TFLOP/s
+    float32 rate outside the tensor cores, the rate row 5 runs on.  Bytes:
+    h rows, W2, g, S, the gradients, and bwd_img's z2 bits (written once,
+    read once by bwd_w and by bwd_txt) and dW2 partials; they are far
+    below.  The sums kernel moves bytes only: the partials and dh_img read
+    once, the gradients written once."""
     h1, h2 = hidden
     pairs = n_img * n_txt
     flop = 2 * pairs * h1 * h2
-    prod = 3 * flop / PEAK_TF32_FLOP_PER_S * 1e3
+    tf32 = flop / PEAK_TF32_FLOP_PER_S * 1e3
     prod_f32 = flop / PEAK_FLOP_PER_S[torch.float32] * 1e3
     io = 4 * ((n_img + n_txt) * h1 + h1 * h2 + 2 * h2 + h1 + 1 + pairs)
     bits = 4 * pairs * -(-h2 // 32)
     parts = -(-n_img // pc._IMG_ROWS) * (2 * h2 + 1)
     moved = {"fwd": io, "bwd_img": io + bits + 4 * parts,
-             "bwd_w": io + bits + 4 * splits * h1 * h2, "bwd_txt": io,
-             "bwd": io}
+             "bwd_w": io + bits + 4 * splits * h1 * h2,
+             "bwd_txt": io + bits, "bwd": io}
     out = {}
-    for kind, n in (("fwd", 1), ("bwd_img", 2), ("bwd_w", 1),
-                    ("bwd_txt", 2), ("bwd", 3)):
+    for kind, n_tf32, n_pair in (("fwd", 3, 1), ("bwd_img", 5, 2),
+                                 ("bwd_w", 2, 1), ("bwd_txt", 2, 1),
+                                 ("bwd", 7, 3)):
         io_ms = moved[kind] / HBM_BYTES_PER_S * 1e3
-        out[kind] = (max(n * prod, io_ms), "operations" if n * prod >= io_ms
-                     else "bytes", n * prod_f32)
+        out[kind] = (max(n_tf32 * tf32, io_ms), "operations"
+                     if n_tf32 * tf32 >= io_ms else "bytes", n_pair * prod_f32)
     red = 4 * (splits * h1 * h2 + parts + n_img * h1 + h1 * h2 + h1
                + 2 * h2 + 1)
     out["bwd_reduce"] = (red / HBM_BYTES_PER_S * 1e3, "bytes", None)
@@ -1072,7 +1094,7 @@ def time_critic(shape=CRITIC_SHAPES[-1], hidden=CRITIC_HIDDEN) -> dict:
              "bwd_img": lambda: pc.bwd_img_kernel(bargs, dh_img, vecp),
              "bwd_w": lambda: pc.bwd_w_kernel(bargs, bits, splits),
              "bwd_reduce": lambda: pc.bwd_reduce_kernel(dw2p, vecp, dh_img),
-             "bwd_txt": lambda: pc.bwd_txt_kernel(bargs)}
+             "bwd_txt": lambda: pc.bwd_txt_kernel(bargs, bits)}
     ms = {kind: time_ms(call, iters=CRITIC_TIMED, warmup=1)
           for kind, call in calls.items()}
     plain = {"fwd": time_ms(lambda: pc.pair_scores_plain(
@@ -1091,20 +1113,20 @@ def time_critic(shape=CRITIC_SHAPES[-1], hidden=CRITIC_HIDDEN) -> dict:
             f"; {cores_ms:.4f} ms at the float32 rate outside the tensor "
             f"cores ({100 * cores_ms / ms[kind]:.1f}%)")
         print(f"  {pc.KERNELS[kind]} {shape + hidden}: kernel {ms[kind]:.4f}"
-              f" ms, bound {bound_ms:.4f} ms ({bound_by}, 3xTF32), kernel at "
+              f" ms, bound {bound_ms:.4f} ms ({bound_by}, TF32), kernel at "
               f"{100 * bound_ms / ms[kind]:.1f}% of the bound{cores}  "
               f"[{card}]")
     row6 = sum(ms[k] for k in ROW6)
     row6_bound = sum(bounds[k][0] for k in ROW6)
     row6_cores = sum(bounds[k][2] or 0.0 for k in ROW6)
     print(f"  row 6 (bwd_img + bwd_w + bwd_reduce) {shape + hidden}: "
-          f"{row6:.4f} ms, 3xTF32 bound {row6_bound:.4f} ms "
+          f"{row6:.4f} ms, TF32 bound {row6_bound:.4f} ms "
           f"({100 * row6_bound / row6:.1f}%), float32 CUDA-core bound "
           f"{row6_cores:.4f} ms ({100 * row6_cores / row6:.1f}%)  [{card}]")
     bwd_ms = sum(ms[k] for k in calls if k != "fwd")
     print(f"  critic backward {shape + hidden}: four kernels {bwd_ms:.4f} ms "
-          f"(5 pair products), bound of the backward {bounds['bwd'][0]:.4f} "
-          f"ms (3 products in 3xTF32; {bounds['bwd'][2]:.4f} ms at the "
+          f"(4 pair products), bound of the backward {bounds['bwd'][0]:.4f} "
+          f"ms (7 TF32 products; {bounds['bwd'][2]:.4f} ms at the "
           f"float32 rate); plain forward {plain['fwd']:.4f} ms, plain "
           f"backward {plain['bwd']:.4f} ms ({CRITIC_ROWS} image rows a "
           f"block)  [{card}]")
@@ -1220,7 +1242,8 @@ def time_ffn(shape=FFN_SHAPE) -> dict:
         bwd_ms = sum(out[k, dt]["ms"] for k in ("bwd_a", "bwd_b1", "bwd_b2"))
         print(f"  fused FFN {shape} {dt}: forward kernel "
               f"{out['fwd', dt]['ms']:.4f} ms against the unfused forward "
-              f"{unfused_ms['fwd']:.4f} ms; three backward kernels "
+              f"{unfused_ms['fwd']:.4f} ms and its bound "
+              f"{out['fwd', dt]['bound_ms']:.4f} ms; three backward kernels "
               f"{bwd_ms:.4f} ms against autograd through the unfused path "
               f"{unfused_ms['bwd']:.4f} ms  [{card}]")
         out["fwd", dt]["unfused_fwd_ms"] = unfused_ms["fwd"]
@@ -1978,15 +2001,16 @@ def drive_grad_cache(device, bert_kw=TRAIN_BERT, configs=GC_CONFIGS,
             if not out["critic_bytes"] < CRITIC_MEMORY_LIMIT:
                 raise AssertionError(f"critic memory {out['critic_bytes']}")
             # twice the batch: 1 GiB of z2 bits in one launch, bounded to
-            # BITS_BUDGET_BYTES by running row 6 over ranges of image rows
+            # BITS_BUDGET_BYTES by running the backward over ranges of
+            # image rows
             big = 2 * batch
             out["critic_bytes_big"] = critic_memory(
                 state.critic_params, big, BERT_BASE["hidden_size"], device)
             print(f"  critic forward + backward at B={big}: "
                   f"{out['critic_bytes_big'] / 2 ** 20:.1f} MiB of device "
-                  f"memory, row 6 in "
+                  f"memory, the backward in "
                   f"{-(-big // pc.bwd_chunk_rows(big, big, CRITIC_HIDDEN[1]))}"
-                  f" launches of bwd_img and bwd_w (z2 bits at most "
+                  f" launches of bwd_img, bwd_w and bwd_txt (z2 bits at most "
                   f"{pc.BITS_BUDGET_BYTES / 2 ** 20:.0f} MiB a launch; limit "
                   f"{CRITIC_MEMORY_LIMIT / 2 ** 30:.0f} GiB)  [{card}]")
             if not out["critic_bytes_big"] < CRITIC_MEMORY_LIMIT:
@@ -2137,6 +2161,22 @@ def drive_fused_ffn(root: str, device, serve_kw=FFN_SERVE_BERT,
     finally:
         srv.close()
     serve_launches = dict(ff.LAUNCHES)  # ... and ends here
+    if cuda:    # the device time of one flag-on text batch
+        sess = InferenceSession(save, batch_size=batch,
+                                bert_config=BertConfig(**serve_kw),
+                                compute_dtype="bfloat16", max_seq_length=seq,
+                                device=device)
+        _, ids, masks = data
+        embed = lambda: sess.embed_texts(ids, masks, np.zeros_like(ids))
+        walls = []
+        for _ in range(6):      # the first call warms up
+            t0 = time.perf_counter()
+            embed()             # ends in a device-to-host copy
+            walls.append(time.perf_counter() - t0)
+        profile_call(f"bfloat16 text batch (B={batch}), fused_ffn on, "
+                     f"session call median of 5", embed,
+                     statistics.median(walls[1:]) * 1e3, card)
+        del sess
     was = off["texts_per_s"]
     print(f"  bfloat16, flag on: {per_s['images_per_s']:.1f} images/s, "
           f"{per_s['texts_per_s']:.1f} texts/s (HTTP, batch {batch}, L={seq}, "
@@ -2194,12 +2234,19 @@ def drive_fused_ffn(root: str, device, serve_kw=FFN_SERVE_BERT,
     if not torch.isfinite(flat).all() or len(set(flat.tolist())) != len(flat):
         raise AssertionError(f"flag-on train losses not finite and distinct: "
                              f"{flat.tolist()}")
+    timed_launches = collections.Counter(ff.LAUNCHES)  # the steps end here
+    if cuda:    # where the flag-on step's device time goes, outside the path
+        profile_call(f"MI train step bf16 L={buckets[-1]} (B={batch}), "
+                     f"fused_ffn on, ms/step above",
+                     lambda: train_step(state, batch_data), ms[buckets[-1]],
+                     card)
     del model, state, train_step, multi_step
     if cuda:
         torch.cuda.empty_cache()
+    ff.reset_launch_counts()            # the path's step comparison ...
     step_cmp = compare_step(device, train_kw, batch, seq,
                                   knob="fused_ffn")
-    train_launches = dict(ff.LAUNCHES)  # ... and ends here
+    train_launches = dict(timed_launches + ff.LAUNCHES)  # ... ends here
     print(f"flag-on launches: serving {serve_launches}, training "
           f"{train_launches}")
     return {"serve_launches": serve_launches, "train_launches":
@@ -2693,6 +2740,8 @@ def main() -> int:
             "replaces": FFN_SRC[kind][1], "launches": launches(name),
             "max_abs_err": ffn_worst[name, torch.bfloat16],
             **ffn_times[kind, torch.bfloat16],
+            **({"sass_hmma": hmma[f"{name}_bf16"]}
+               if f"{name}_bf16" in hmma else {}),
             "f32": {"max_abs_err": ffn_worst[name, torch.float32],
                     **ffn_times[kind, torch.float32]}})
     # the shallow-conv kernels likewise: bfloat16 first, float32 under "f32"

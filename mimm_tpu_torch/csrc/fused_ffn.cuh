@@ -1,14 +1,16 @@
 // Shared device code of the fused BERT FFN kernels for Hopper (sm_90a):
-// the tanh-GELU and its derivative, the typed loads, and the row-tile
-// kernel that csrc/fused_ffn_fwd.cu (forward) and csrc/fused_ffn_bwd.cu
-// (backward A) instantiate.
+// the tanh-GELU and its derivative, the typed loads, the shapes the
+// kernels take, and the row-tile kernel that csrc/fused_ffn_fwd.cu (the
+// float32 forward; the bfloat16 forward is its own tensor-core kernel
+// there) and csrc/fused_ffn_bwd.cu (backward A, both types) instantiate.
 //
 // The row-tile kernel chains two products through shared memory and
 // registers.  A block of 256 threads owns BM = 32 rows of the token
 // dimension and walks the intermediate width f in chunks of FC = 128
 // columns:
 //
-//   forward (BWD = false), replaces mimm_tpu/ops/fused_ffn.py _fwd_kernel:
+//   forward (BWD = false, float32), replaces mimm_tpu/ops/fused_ffn.py
+//   _fwd_kernel:
 //     h[:, c]  = x_tile · w1[:, c] + b1[c]        (f32 sum; stored as T)
 //     g        = T(gelu_tanh(h_f32))              (kept in shared memory)
 //     y_tile  += g · w2[c, :]                     (f32, in registers)
@@ -33,10 +35,11 @@
 // staged slice), the backward along the output axis; no transposed copy of
 // a weight is ever made.
 //
-// All products are f32 FMAs on upcast operands on the CUDA cores, for
-// float and for __nv_bfloat16 alike; tensor cores (wgmma) and TMA are
-// later work.  tanhf is the precise one: the f32 check against the plain
-// version depends on it (no --use_fast_math).
+// All products of this kernel are f32 FMAs on upcast operands on the CUDA
+// cores, for float and for __nv_bfloat16 alike; backward A on the tensor
+// cores (as the bfloat16 forward is), wgmma and TMA are later work.  tanhf
+// is the precise one: the f32 check against the plain version depends on
+// it (no --use_fast_math).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -322,15 +325,19 @@ int launch_row_tile(const void* in, const void* wa, const void* wb,
   return (int)cudaGetLastError();
 }
 
-// d = 128·NJ with 1 <= NJ <= MAX_NJ, f a multiple of FC, t·f < 2^31
+// the shapes every fused FFN kernel takes: d = 128·NJ with 1 <= NJ <=
+// MAX_NJ, f a multiple of FC, t·f < 2^31
+inline bool shape_ok(int t, int d, int f) {
+  return t >= 1 && d >= 128 && d % 128 == 0 && d <= 128 * MAX_NJ &&
+         f >= FC && f % FC == 0 && (long long)t * f < (1LL << 31);
+}
+
 template <typename T, bool BWD>
 int dispatch_row_tile(const void* in, const void* wa, const void* wb,
                       const void* b1, const void* b2, const void* h_in,
                       void* out, void* mid, int t, int d, int f,
                       void* stream) {
-  if (t < 1 || d < 128 || d % 128 || d > 128 * MAX_NJ || f < FC || f % FC ||
-      (long long)t * f >= (1LL << 31))
-    return (int)cudaErrorInvalidValue;
+  if (!shape_ok(t, d, f)) return (int)cudaErrorInvalidValue;
 #define MIMM_ROW_TILE_CASE(NJ)                                              \
   case NJ:                                                                  \
     return launch_row_tile<T, NJ, BWD>(in, wa, wb, b1, b2, h_in, out, mid, \

@@ -23,19 +23,21 @@
 // storing dz2 for every pair would take B²·H2·4 B.  But dz2 is g·w3 where
 // z2 > 0: one bit a pair and column (B²·H2/8 B, 268 MB at 2048²) carries
 // it from the kernel that computes z2 to the one that needs it for dW2.
+// The same bits give dh_txt its mask, so row 7 needs no z2 of its own.
 // Past 256 MiB of bits the wrapper (ops/pairwise_critic.py
-// BITS_BUDGET_BYTES) runs bwd_img and bwd_w over ranges of image rows in
-// turn, bwd_w adding into the same partials, so the bits never take more.
+// BITS_BUDGET_BYTES) runs bwd_img, bwd_w and bwd_txt over ranges of image
+// rows in turn, bwd_w adding into the same partials and bwd_txt into the
+// same dh_txt, so the bits never take more.
 //
-// Row 6 (dh_img and the weight gradients), three pair products on the
-// tensor cores, mma.sync m16n8k8 in 3xTF32 (warp_mma.cuh: each float32
-// operand split into a tf32 high part and a tf32 remainder, three mmas a
-// product, float32 accumulation; about float32's accuracy).  Two facts make
-// it cheaper.  dz2 = g·w3·mask with mask = [z2 > 0], so g and w3 come out
-// of the products: dt = g·(mask·(w3∘W2)ᵀ) and dW2 = w3·((g·t)ᵀ·mask); the
-// mask, 1.0 or 0.0, is exact in tf32, so those two products take two mmas
-// where 3xTF32 takes three.  And an operand that several warps read (t, g·t)
-// is split once, when it is staged in shared memory, not at every load.
+// Rows 6 and 7, four pair products on the tensor cores, mma.sync m16n8k8
+// in 3xTF32 (warp_mma.cuh: each float32 operand split into a tf32 high part
+// and a tf32 remainder, three mmas a product, float32 accumulation; about
+// float32's accuracy).  Two facts make it cheaper.  dz2 = g·w3·mask with
+// mask = [z2 > 0], so g and w3 come out of the products: dt =
+// g·(mask·(w3∘W2)ᵀ) and dW2 = w3·((g·t)ᵀ·mask); the mask, 1.0 or 0.0, is
+// exact in tf32, so those products take two mmas where 3xTF32 takes three.  And an operand that several warps read (t, g·t,
+// and row 7's w3∘W2) is split once, when it is staged in shared memory,
+// not at every load.
 // * bwd_img_kernel: a block owns 4 image rows and loops over the text rows
 //   in tiles of 16, 64 pairs a tile (one m16 tile per image row).  Per tile
 //   it computes z2 over all of H2 (t built 16 deep in shared memory from
@@ -51,16 +53,21 @@
 //   pairs, and writes one partial per split.  One pair product.
 // * reduce_kernel: adds the split partials, the per-block db2, dw3 and db3,
 //   and db1 = Σ_i dh_img[i], in a fixed order.
-// Row 7 (dh_txt), bwd_txt_kernel, is the first design on the CUDA cores:
-// a block owns 4 text rows and loops over the image rows in tiles of 16,
-// recomputing z2 (register-blocked FMAs over H1 from 0 up) and dt.
+// * bwd_txt_kernel (row 7, dh_txt): bwd_img's dt transposed: a block owns
+//   4 text rows and loops over the image rows in tiles of 16, 64 pairs a
+//   tile, dt = g·(mask·(w3∘W2)ᵀ) in 256-column passes over H1 with the
+//   mask expanded from bwd_img's bits as it is loaded (two mmas a tile,
+//   (w3∘W2) split once as it is staged), masked to dz1 and summed over the
+//   tile's image rows into the block's dh rows.  One pair product, where
+//   its first design on the CUDA cores recomputed z2 and took two.
 //
 // No float atomics anywhere: every sum runs in a fixed order, so the result
-// is the same from run to run.  The forward and row 7 accumulate z2 on the
-// CUDA cores in one order, row 6 on the tensor cores in another, so their
+// is the same from run to run.  The forward accumulates z2 on the CUDA
+// cores in one order, bwd_img on the tensor cores in another, so their
 // relu masks agree wherever z2 is not within float32 rounding of 0; where
 // it is, a flipped mask moves a gradient by a term of that size, which
-// the kernels' tolerances (CRITIC_TOL in chip_smoke.py) hold.
+// the kernels' tolerances (CRITIC_TOL in chip_smoke.py) hold.  Every
+// gradient of the backward takes its z2 mask from the same bits.
 //
 // Interface: plain extern "C", raw device pointers and the stream; each
 // returns the cudaError_t of its launch (cudaErrorInvalidValue for shapes
@@ -73,216 +80,8 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int BK = 8;          // depth of a staged slice
 constexpr int MAX_H1 = 1024;
 constexpr int MAX_H2 = 512;
-
-// ---- dh_txt (row 7) ---------------------------------------------------------
-constexpr int TO = 4;              // own rows per block
-constexpr int TT = 16;             // other rows per tile
-constexpr int PT = TO * TT;        // pairs per tile
-constexpr int RN = 128;            // columns per pass (of H2, then of H1)
-constexpr int RA_STRIDE = PT + 4;  // padded: conflict-free transposed stores
-constexpr int RB_STRIDE = RN + 4;
-
-__host__ __device__ inline int dz2_stride(int h2) {
-  return (h2 + RN - 1) / RN * RN + 4;
-}
-
-size_t rows_smem_bytes(int h1, int h2) {
-  return sizeof(float) * ((size_t)PT * dz2_stride(h2) + (size_t)TO * h1);
-}
-
-// dh_txt: a block owns TO text rows and loops over the image rows in tiles
-// of TT.  z1 = (h_txt + h_img) + b1 is the forward's (h_img + h_txt) + b1,
-// since float addition commutes.
-__global__ void __launch_bounds__(THREADS)
-    bwd_txt_kernel(const float* __restrict__ hi, const float* __restrict__ hj,
-                   const float* __restrict__ b1, const float* __restrict__ w2,
-                   const float* __restrict__ b2, const float* __restrict__ w3,
-                   const float* __restrict__ g, float* __restrict__ dh,
-                   int n_img, int n_txt, int h1, int h2) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ __align__(16) float as[BK * RA_STRIDE];  // t slice [k][pair]
-  __shared__ __align__(16) float bs[BK * RB_STRIDE];  // W2 / W2ᵀ slice
-  __shared__ float red[16 * RN];                      // [ty][column]
-  const int h2s = dz2_stride(h2);
-  float* dz2s = smem;                    // [PT][h2s]
-  float* dhs = smem + (size_t)PT * h2s;  // [TO][h1]
-
-  // own rows: texts; other rows: images
-  const float* own = hj;
-  const float* other = hi;
-  const int n_own = n_txt;
-  const int n_other = n_img;
-  const int o0 = blockIdx.x * TO;
-
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
-  // this thread's pairs ty*4 + r: own row co, other rows ct + r of the tile
-  const int co = o0 + ty / 4;
-  const int ct = (ty % 4) * 4;
-  // the thread builds t for pairs tid/8 + 32q (q < 2) at depth tid % 8
-  const int ak = tid % BK;
-
-  for (int e = tid; e < TO * h1; e += THREADS) dhs[e] = 0.f;
-
-  for (int t0 = 0; t0 < n_other; t0 += TT) {
-    int off_o[2], off_t[2];  // row offsets of the built pairs; -1: none
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int m = tid / BK + 32 * q;
-      const int o = o0 + m / TT;
-      const int t = t0 + m % TT;
-      const bool live = o < n_own && t < n_other;
-      off_o[q] = live ? o * h1 : -1;
-      off_t[q] = live ? t * h1 : 0;
-    }
-    float gv[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int t = t0 + ct + r;
-      gv[r] = (co < n_own && t < n_other)
-                  ? g[(size_t)t * n_txt + co]
-                  : 0.f;
-    }
-
-    // ---- z2 over all of H2; dz2 = g·w3 where z2 > 0, into shared memory
-    for (int n0 = 0; n0 < h2; n0 += RN) {
-      float acc[4][8];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-      float ra[2], rb[4];
-      auto load = [&](int k0) {
-        const int k = k0 + ak;
-        const float bias = k < h1 ? b1[k] : 0.f;
-#pragma unroll
-        for (int q = 0; q < 2; ++q)
-          ra[q] = (off_o[q] >= 0 && k < h1)
-                      ? fmaxf(own[off_o[q] + k] + other[off_t[q] + k] + bias,
-                              0.f)
-                      : 0.f;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int kk = k0 + tid / RN + 2 * q;
-          const int n = n0 + tid % RN;
-          rb[q] = (kk < h1 && n < h2) ? w2[(size_t)kk * h2 + n] : 0.f;
-        }
-      };
-      load(0);
-      for (int k0 = 0; k0 < h1; k0 += BK) {
-#pragma unroll
-        for (int q = 0; q < 2; ++q) as[ak * RA_STRIDE + tid / BK + 32 * q] = ra[q];
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          bs[(tid / RN + 2 * q) * RB_STRIDE + tid % RN] = rb[q];
-        __syncthreads();
-        if (k0 + BK < h1) load(k0 + BK);  // in flight during the FMAs
-#pragma unroll
-        for (int kk = 0; kk < BK; ++kk) {
-          const float4 a4 =
-              *reinterpret_cast<const float4*>(as + kk * RA_STRIDE + ty * 4);
-          const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-          float b[8];
-#pragma unroll
-          for (int c = 0; c < 8; ++c) b[c] = bs[kk * RB_STRIDE + tx + 16 * c];
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int n = n0 + tx + 16 * c;
-        const bool ok = n < h2;
-        const float wn = ok ? w3[n] : 0.f;
-        const float bias = ok ? b2[n] : 0.f;
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          dz2s[(ty * 4 + r) * h2s + n] =
-              (ok && acc[r][c] + bias > 0.f) ? gv[r] * wn : 0.f;
-      }
-    }
-    __syncthreads();  // dz2s complete
-
-    // ---- dt = dz2·W2ᵀ in 128-column passes over H1; dz1 = dt where z1 > 0,
-    // summed over the tile's other rows into the block's dh rows
-    for (int m0 = 0; m0 < h1; m0 += RN) {
-      float acc[4][8];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-      float rb[4];  // W2[m0 + tid/8 + 32q][k0 + tid % 8]
-      auto load = [&](int k0) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int mm = m0 + tid / BK + 32 * q;
-          const int k = k0 + ak;
-          rb[q] = (mm < h1 && k < h2) ? w2[(size_t)mm * h2 + k] : 0.f;
-        }
-      };
-      load(0);
-      for (int k0 = 0; k0 < h2; k0 += BK) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) bs[ak * RB_STRIDE + tid / BK + 32 * q] = rb[q];
-        __syncthreads();
-        if (k0 + BK < h2) load(k0 + BK);
-#pragma unroll
-        for (int kk = 0; kk < BK; ++kk) {
-          float a[4];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) a[r] = dz2s[(ty * 4 + r) * h2s + k0 + kk];
-          float b[8];
-#pragma unroll
-          for (int c = 0; c < 8; ++c) b[c] = bs[kk * RB_STRIDE + tx + 16 * c];
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int m = m0 + tx + 16 * c;
-        float s = 0.f;
-        if (m < h1 && co < n_own) {
-          const float ho = own[(size_t)co * h1 + m];
-          const float bias = b1[m];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const int t = t0 + ct + r;
-            if (t < n_other && ho + other[(size_t)t * h1 + m] + bias > 0.f)
-              s += acc[r][c];
-          }
-        }
-        red[ty * RN + tx + 16 * c] = s;
-      }
-      __syncthreads();
-      for (int e = tid; e < TO * RN; e += THREADS) {
-        const int o = e / RN;
-        const int mm = e % RN;
-        if (m0 + mm < h1)
-          dhs[o * h1 + m0 + mm] += red[(4 * o) * RN + mm] +
-                                   red[(4 * o + 1) * RN + mm] +
-                                   red[(4 * o + 2) * RN + mm] +
-                                   red[(4 * o + 3) * RN + mm];
-      }
-      __syncthreads();
-    }
-  }
-
-  for (int e = tid; e < TO * h1; e += THREADS) {
-    const int o = o0 + e / h1;
-    if (o < n_own) dh[(size_t)o * h1 + e % h1] = dhs[e];
-  }
-}
 
 // ---- row 6: the 3xTF32 warp product (warp_mma.cuh mma_step) ---------------
 constexpr int KC = 32;          // depth of a staged chunk: four k-steps of 8
@@ -724,6 +523,146 @@ __global__ void __launch_bounds__(THREADS)
     }
 }
 
+// ---- dh_txt (row 7) -----------------------------------------------------------
+constexpr int TJ = 4;                 // text rows per block
+constexpr int TI = 16;                // image rows per tile: an m16 tile a row
+constexpr int TP = TJ * TI;           // pairs per tile
+constexpr int TW_LD = KC + 4;         // (w3∘W2) chunk [n = H1][k = H2], split
+constexpr size_t TXT_SMEM_BYTES =
+    sizeof(uint2) * 2 * PN * TW_LD +
+    sizeof(float) * (TP * MK_LD + TJ * MAX_H1 + MAX_H2 + TP);
+
+// bwd_img's transpose: one block per TJ text rows, 8 warps, each a 64 × 32
+// tile of every pass (all of the tile's pairs, 32 columns of H1), the image
+// rows walked in tiles of TI.  dt = g·(mask·(w3∘W2)ᵀ) with the mask read
+// from bwd_img's bits (the same range of image rows): 1.0 or 0.0, exact in
+// tf32, so two mmas a tile; (w3∘W2) is split into its tf32 parts once, as
+// it is staged (register-prefetched a chunk ahead), and g joins in the
+// epilogue.  dz1 = dt where z1 > 0 is summed over the tile's image rows
+// (shuffles, then shared memory) into the block's dh rows, tile after tile;
+// written, or added to dh's values where accumulate is nonzero.
+__global__ void __launch_bounds__(THREADS, 1)
+    bwd_txt_kernel(const float* __restrict__ hi, const float* __restrict__ hj,
+                   const float* __restrict__ b1, const float* __restrict__ w2,
+                   const float* __restrict__ w3, const float* __restrict__ g,
+                   const unsigned* __restrict__ bits, float* __restrict__ dh,
+                   int n_img, int n_txt, int h1, int h2, int accumulate) {
+  extern __shared__ __align__(16) float smem[];
+  uint2* wt = reinterpret_cast<uint2*>(smem);           // [2][PN][TW_LD]
+  unsigned* mk = reinterpret_cast<unsigned*>(wt + 2 * PN * TW_LD);
+                                                        // [TP][MK_LD]
+  float* dhs = reinterpret_cast<float*>(mk + TP * MK_LD);  // [TJ][MAX_H1]
+  float* w3s = dhs + TJ * MAX_H1;                       // [MAX_H2]
+  float* gs = w3s + MAX_H2;                             // [TP]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g4 = lane / 4, t4 = lane % 4;
+  const int j0 = blockIdx.x * TJ;
+  const int wpp = (h2 + 31) / 32;
+  for (int e = tid; e < TJ * MAX_H1; e += THREADS) dhs[e] = 0.f;
+  for (int e = tid; e < MAX_H2; e += THREADS) w3s[e] = e < h2 ? w3[e] : 0.f;
+  __syncthreads();
+
+  // this thread stages W2[p0 + warp + 8q][k0 + lane], q < PN/8: a warp
+  // reads 128 consecutive bytes of a row and stores 32 consecutive words
+  float wv[PN / 8];
+  auto load_w = [&](int p0, int k0) {
+    const int k = k0 + lane;
+#pragma unroll
+    for (int q = 0; q < PN / 8; ++q) {
+      const int row = p0 + warp + 8 * q;
+      wv[q] = row < h1 && k < h2 ? w2[(size_t)row * h2 + k] : 0.f;
+    }
+  };
+  auto store_w = [&](int buf, int k0) {
+    const float s = w3s[k0 + lane];
+#pragma unroll
+    for (int q = 0; q < PN / 8; ++q)
+      wt[(buf * PN + warp + 8 * q) * TW_LD + lane] = split_pair(s * wv[q]);
+  };
+
+  const int nk = (h2 + KC - 1) / KC;   // a chunk of KC columns: one word
+  for (int i0 = 0; i0 < n_img; i0 += TI) {
+    // the tile's g and bits: pair m = TI·jl + il is text row j0 + jl and
+    // image row i0 + il; read after the first chunk's barrier
+    if (tid < TP) {
+      const int j = j0 + tid / TI, i = i0 + tid % TI;
+      gs[tid] = i < n_img && j < n_txt ? g[(size_t)i * n_txt + j] : 0.f;
+    }
+    for (int e = tid; e < TP * wpp; e += THREADS) {
+      const int m = e / wpp, w = e % wpp;
+      const int j = j0 + m / TI, i = i0 + m % TI;
+      mk[m * MK_LD + w] =
+          i < n_img && j < n_txt ? bits[((size_t)i * n_txt + j) * wpp + w] : 0u;
+    }
+    for (int p0 = 0; p0 < h1; p0 += PN) {
+      float acc[4][4][4] = {};
+      load_w(p0, 0);
+      store_w(0, 0);
+      __syncthreads();
+      for (int c = 0; c < nk; ++c) {
+        if (c + 1 < nk) load_w(p0, (c + 1) * KC);  // in flight during the mmas
+        const uint2* b = wt + ((c & 1) * PN + warp * 32) * TW_LD;
+        const unsigned* mw = mk + c;
+#pragma unroll
+        for (int kk = 0; kk < KC; kk += 8)
+          mma_step<4, 4, true, false>(
+              acc,
+              [&](int m, int k, unsigned& h, unsigned&) {  // 1.0f or 0.0f
+                h = (mw[m * MK_LD] >> (kk + k)) & 1u ? 0x3F800000u : 0u;
+              },
+              [&](int k, int n, unsigned& h, unsigned& l) {
+                const uint2 v = b[n * TW_LD + kk + k];
+                h = v.x;
+                l = v.y;
+              },
+              lane);
+        if (c + 1 < nk) store_w((c + 1) & 1, (c + 1) * KC);
+        __syncthreads();
+      }
+      // acc[mt][nt][2h + e]: pair 16mt + g4 + 8h (text row j0 + mt, image
+      // row i0 + g4 + 8h), column p0 + 32·warp + 8nt + 2t4 + e
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = p0 + warp * 32 + 8 * nt + 2 * t4 + e;
+          const bool okc = col < h1;
+          const float bias = okc ? b1[col] : 0.f;
+          float hv[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = i0 + g4 + 8 * h;
+            hv[h] = okc && i < n_img ? hi[(size_t)i * h1 + col] : 0.f;
+          }
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt) {
+            const int j = j0 + mt;
+            const bool okj = okc && j < n_txt;
+            const float hw = okj ? hj[(size_t)j * h1 + col] : 0.f;
+            float s = 0.f;
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              if (okj && i0 + g4 + 8 * h < n_img && (hv[h] + hw) + bias > 0.f)
+                s += gs[16 * mt + g4 + 8 * h] * acc[mt][nt][2 * h + e];
+#pragma unroll
+            for (int x = 4; x < 32; x *= 2) s += shfl_xor(s, x);
+            if (g4 == 0 && okc) dhs[mt * MAX_H1 + col] += s;
+          }
+        }
+    }
+    __syncthreads();  // gs, mk and dhs settled before the next tile's
+  }
+
+  for (int e = tid; e < TJ * h1; e += THREADS) {
+    const int jl = e / h1, col = e % h1;
+    if (j0 + jl < n_txt) {
+      float& out = dh[(size_t)(j0 + jl) * h1 + col];
+      const float v = dhs[jl * MAX_H1 + col];
+      out = accumulate ? out + v : v;
+    }
+  }
+}
+
 // ---- the fixed-order sums (row 6) -------------------------------------------
 __global__ void __launch_bounds__(THREADS)
     reduce_kernel(const float* __restrict__ dw2p,
@@ -764,28 +703,28 @@ bool shapes_ok(int n_img, int n_txt, int h1, int h2) {
 
 }  // namespace
 
-// dh_txt (n_txt, h1) by bwd_txt_kernel (row 7).  hi: (n_img, h1),
-// hj: (n_txt, h1), b1: (h1), w2: (h1, h2), b2, w3: (h2), g: (n_img, n_txt);
-// float32, contiguous, on the device.
-extern "C" int mimm_pairwise_critic_bwd_txt(const void* hi, const void* hj,
-                                            const void* b1, const void* w2,
-                                            const void* b2, const void* w3,
-                                            const void* g, void* dh,
-                                            int n_img, int n_txt, int h1,
-                                            int h2, void* stream) {
+// dh_txt (n_txt, h1) by bwd_txt_kernel (row 7) from the bits of bwd_img on
+// the same image rows, written, or added to dh's values where accumulate is
+// nonzero (one launch per range of image rows, in order).  hi: (n_img, h1),
+// hj: (n_txt, h1), b1: (h1), w2: (h1, h2), w3: (h2), g: (n_img, n_txt),
+// bits: (n_img·n_txt, ceil(h2/32)); float32 (bits uint32), contiguous, on
+// the device.
+extern "C" int mimm_pairwise_critic_bwd_txt(
+    const void* hi, const void* hj, const void* b1, const void* w2,
+    const void* w3, const void* g, const void* bits, void* dh, int n_img,
+    int n_txt, int h1, int h2, int accumulate, void* stream) {
   if (!shapes_ok(n_img, n_txt, h1, h2)) return (int)cudaErrorInvalidValue;
-  const size_t smem = rows_smem_bytes(h1, h2);
-  const unsigned blocks = (unsigned)((n_txt + TO - 1) / TO);
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_txt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      bwd_txt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)TXT_SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  bwd_txt_kernel<<<blocks, THREADS, smem,
+  bwd_txt_kernel<<<(unsigned)((n_txt + TJ - 1) / TJ), THREADS, TXT_SMEM_BYTES,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(hi), static_cast<const float*>(hj),
       static_cast<const float*>(b1), static_cast<const float*>(w2),
-      static_cast<const float*>(b2), static_cast<const float*>(w3),
-      static_cast<const float*>(g), static_cast<float*>(dh), n_img, n_txt,
-      h1, h2);
+      static_cast<const float*>(w3), static_cast<const float*>(g),
+      static_cast<const unsigned*>(bits), static_cast<float*>(dh), n_img,
+      n_txt, h1, h2, accumulate);
   return (int)cudaGetLastError();
 }
 

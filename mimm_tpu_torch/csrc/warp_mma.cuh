@@ -1,6 +1,7 @@
 // The warp-level primitives of the bfloat16 flash-attention kernels
-// (flash_attention_fwd.cu, flash_attention_bwd.cu) and the pairwise critic
-// backward (pairwise_critic_bwd.cu), each behind a small device function:
+// (flash_attention_fwd.cu, flash_attention_bwd.cu), the bfloat16 fused FFN
+// forward (fused_ffn_fwd.cu) and the pairwise critic backward
+// (pairwise_critic_bwd.cu), each behind a small device function:
 // bf16 packing, the tensor-core products mma.sync m16n8k16 (bf16 x bf16,
 // f32 accumulation) and m16n8k8 (tf32 x tf32, f32 accumulation), the
 // float32 -> tf32 rounding, ldmatrix from shared memory, cp.async and its

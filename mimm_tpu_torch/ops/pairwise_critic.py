@@ -21,8 +21,11 @@ partials from those bits, ``bwd_reduce`` the fixed-order sums.  Past
 ``BITS_BUDGET_BYTES`` of bits, ``bwd_img`` and ``bwd_w`` run over ranges of
 image rows in turn (``bwd_chunk_rows``), ``bwd_w`` adding into the same
 partials, so the bits stay within that budget at any batch.  Row 7,
-``bwd_txt`` (dh_txt), is the first design on the CUDA cores.  No buffer of
-B_img·B_txt·H1 floats exists on that path.  For CPU tensors they are
+``bwd_txt`` (dh_txt), runs in the same loop, after ``bwd_w`` and on the
+same range's bits: one pair product, dt from the bits' mask, in the same
+3xTF32 form; the first range writes dh_txt, later ranges add into it, in
+order.  So every gradient takes its relu mask of z2 from the same bits.
+No buffer of B_img·B_txt·H1 floats exists on that path.  For CPU tensors they are
 ``pair_scores_plain`` and ``pair_scores_bwd_plain``, the same two functions
 in plain PyTorch, the backward written out with the kernels' formulas.
 There is no fallback from CUDA to the plain versions: a CUDA call launches
@@ -59,8 +62,9 @@ MAX_H2 = 512
 MAX_SPLITS = 16           # pair ranges of the dW2 kernel (scratch per split)
 _W_SPLIT_PAIRS = 256      # fewest pairs a range
 _IMG_ROWS = 4             # image rows a bwd_img block owns (csrc IT)
-# the z2 > 0 bits of one bwd_img / bwd_w launch: all of 2048 x 2048 pairs at
-# H2 = 512; larger batches take several launches (bwd_chunk_rows)
+# the z2 > 0 bits of one bwd_img / bwd_w / bwd_txt launch: all of 2048 x
+# 2048 pairs at H2 = 512; larger batches take several launches
+# (bwd_chunk_rows)
 BITS_BUDGET_BYTES = 2 ** 28
 
 
@@ -176,9 +180,9 @@ def bwd_splits(n_img: int, n_txt: int) -> int:
 
 
 def bwd_chunk_rows(n_img: int, n_txt: int, h2: int) -> int:
-    """Image rows of one bwd_img / bwd_w launch: all of them while their
-    z2 > 0 bits fit BITS_BUDGET_BYTES, else the most rows, a multiple of
-    bwd_img's block, that fit (at least one block)."""
+    """Image rows of one bwd_img / bwd_w / bwd_txt launch: all of them
+    while their z2 > 0 bits fit BITS_BUDGET_BYTES, else the most rows, a
+    multiple of bwd_img's block, that fit (at least one block)."""
     per_row = n_txt * -(-h2 // 32) * 4
     rows = BITS_BUDGET_BYTES // per_row // _IMG_ROWS * _IMG_ROWS
     return min(n_img, max(_IMG_ROWS, rows))
@@ -219,13 +223,32 @@ def bwd_img_kernel(args, dh: torch.Tensor, vecp: torch.Tensor):
     return bits
 
 
-def bwd_txt_kernel(args) -> torch.Tensor:
-    """Row 7: dh_txt (B_txt, H1)."""
-    lib, shape = _bwd_lib(args)
-    fn = _typed(lib.mimm_pairwise_critic_bwd_txt, 8, 4)
-    dh = _empty(args[0].device, shape[1], shape[2])
-    _launched(_launch(fn, dh, *(t.data_ptr() for t in args), dh.data_ptr(),
-                      *shape), KERNELS["bwd_txt"], shape)
+def _check_bits(bits: torch.Tensor, ni: int, nj: int, h2: int) -> None:
+    if bits.dtype != torch.int32 or tuple(bits.shape) != (ni * nj,
+                                                          -(-h2 // 32)):
+        raise ValueError(f"bits must be int32 {(ni * nj, -(-h2 // 32))}, got "
+                         f"{bits.dtype} {tuple(bits.shape)}")
+
+
+def bwd_txt_kernel(args, bits: torch.Tensor,
+                   dh: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Row 7: dh_txt (B_txt, H1) from the bits of ``bwd_img_kernel`` on the
+    same args, in a new tensor, or added to ``dh``'s values when it is
+    given."""
+    lib, (ni, nj, h1, h2) = _bwd_lib(args)
+    _check_bits(bits, ni, nj, h2)
+    accumulate = dh is not None
+    if dh is None:
+        dh = _empty(args[0].device, nj, h1)
+    elif dh.dtype != torch.float32 or tuple(dh.shape) != (nj, h1) \
+            or not dh.is_contiguous():
+        raise ValueError(f"dh must be contiguous float32 {(nj, h1)}")
+    fn = _typed(lib.mimm_pairwise_critic_bwd_txt, 8, 5)
+    h_img, h_txt, b1, w2, _, w3, g = args
+    _launched(_launch(fn, dh, *(t.data_ptr() for t in (h_img, h_txt, b1, w2,
+                                                       w3, g, bits, dh)),
+                      ni, nj, h1, h2, int(accumulate)),
+              KERNELS["bwd_txt"], (ni, nj, h1, h2))
     return dh
 
 
@@ -235,10 +258,7 @@ def bwd_w_kernel(args, bits: torch.Tensor, splits: int,
     the bits of ``bwd_img_kernel``, in a new tensor, or added to ``dw2p``'s
     values when it is given."""
     lib, (ni, nj, h1, h2) = _bwd_lib(args)
-    if bits.dtype != torch.int32 or tuple(bits.shape) != (ni * nj,
-                                                          -(-h2 // 32)):
-        raise ValueError(f"bits must be int32 {(ni * nj, -(-h2 // 32))}, got "
-                         f"{bits.dtype} {tuple(bits.shape)}")
+    _check_bits(bits, ni, nj, h2)
     accumulate = dw2p is not None
     if dw2p is None:
         dw2p = _empty(args[0].device, splits, h1, h2)
@@ -281,15 +301,16 @@ def _backward_kernel(h_img, h_txt, b1, w2, b2, w3, g):
     (ni, h1), nj, h2 = h_img.shape, h_txt.shape[0], w2.shape[1]
     dh_img = _empty(h_img.device, ni, h1)
     vecp = _empty(h_img.device, -(-ni // _IMG_ROWS), 2 * h2 + 1)
-    rows, splits, dw2p = bwd_chunk_rows(ni, nj, h2), bwd_splits(ni, nj), None
+    rows, splits = bwd_chunk_rows(ni, nj, h2), bwd_splits(ni, nj)
+    dw2p = dh_txt = None
     for r0 in range(0, ni, rows):   # whole blocks of image rows, in order
         r1 = min(ni, r0 + rows)
         part = (h_img[r0:r1], *args[1:6], g[r0:r1])
         bits = bwd_img_kernel(part, dh_img[r0:r1],
                               vecp[r0 // _IMG_ROWS:-(-r1 // _IMG_ROWS)])
         dw2p = bwd_w_kernel(part, bits, splits, dw2p)
+        dh_txt = bwd_txt_kernel(part, bits, dh_txt)
         del bits                    # at most BITS_BUDGET_BYTES
-    dh_txt = bwd_txt_kernel(args)
     dw2, db1, db2, dw3, db3 = bwd_reduce_kernel(dw2p, vecp, dh_img)
     return dh_img, dh_txt, db1, dw2, db2, dw3.reshape(w3.shape), db3
 

@@ -17,7 +17,8 @@ the emulated m16n8k8 against torch.matmul of TF32-rounded inputs and the
 This checks the kernels' indexing, ragged-edge masks (pair counts and
 hidden widths that are no multiples of the 64-pair, 16-deep, 128- and
 256-column tiles), shared-memory staging, the z2 bits that pass from
-``bwd_img`` to ``bwd_w``, and fixed-order sums (two calls, the same bits)
+``bwd_img`` to ``bwd_w`` and ``bwd_txt`` (one flipped bit must move dh_txt
+as it moves dh_txt computed from the same bits), and fixed-order sums (two calls, the same bits)
 without a card, and row 6 over ranges of image rows (a bits budget cut
 so that it takes several launches); the card's compiler, its
 memory model and every time come only from chip_smoke.py.  Shapes: one
@@ -151,9 +152,10 @@ def test_emulated_tf32_probe(results):
 
 @pytest.mark.parametrize("case", list(CHUNKED))
 def test_emulated_row_ranges_match_plain(results, case):
-    """Past BITS_BUDGET_BYTES of z2 bits row 6 runs bwd_img and bwd_w once
-    per range of image rows: the same gradients, one launch of each a
-    range, the same bits twice."""
+    """Past BITS_BUDGET_BYTES of z2 bits bwd_img, bwd_w and bwd_txt run
+    once per range of image rows, bwd_w and bwd_txt adding into what the
+    earlier ranges gave: the same gradients (dh_txt from only the last
+    range fails), one launch of each a range, the same bits twice."""
     if "skip" in results:
         pytest.skip(results["skip"])
     got = results["chunked"][case]
@@ -163,9 +165,31 @@ def test_emulated_row_ranges_match_plain(results, case):
     for name, err in got["errors"].items():
         assert err <= (1e-6 if exact else 1e-5), (case, name, err)
     assert got["launches"] == {
-        name: ranges if kind in ("bwd_img", "bwd_w") else 1
+        name: ranges if kind in ("bwd_img", "bwd_w", "bwd_txt") else 1
         for name, kind in results["kernel_kinds"].items()}
     assert got["rerun_equal"] is True
+
+
+def test_emulated_bwd_txt_reads_each_pairs_bits(results):
+    """bwd_txt on bwd_img's bits with one bit flipped (one pair, one H2
+    column) matches dh_txt computed in float64 with that same mask, and the
+    flip moves dh_txt far past the tolerance: the kernel reads each pair's
+    and column's bit where bwd_img writes it."""
+    if "skip" in results:
+        pytest.skip(results["skip"])
+    got = results["bits_probe"]
+    assert got["flipped"] <= 1e-6, got
+    assert got["flip_moves"] > 1e-3, got
+
+
+def test_emulated_bwd_txt_adds_into_dh(results):
+    """Given a dh_txt, bwd_txt adds its sums to it (the later ranges of
+    image rows) instead of overwriting it."""
+    if "skip" in results:
+        pytest.skip(results["skip"])
+    got = results["bits_probe"]
+    assert got["added"] <= 1e-6, got
+    assert got["given"] > 1e-1, got
 
 
 def test_bits_budget_rows(results):
@@ -229,6 +253,7 @@ def _child(job):
             meta["errors"][case] = _errors(got, want)
         meta["launches"] = dict(pc.LAUNCHES)
         meta["kernels"] = list(pc.KERNELS.values())
+        meta["bits_probe"] = _bits_probe(pc)
         meta["kernel_kinds"] = {k: n for n, k in pc.KERNELS.items()}
         meta["chunked"] = {}
         budget = pc.BITS_BUDGET_BYTES
@@ -272,6 +297,56 @@ def _draw(gen, exact, n_img, n_txt, h1, h2):
             draw(h1, bound=0.5), draw(h1, h2, bound=0.25),
             draw(h2, bound=0.5), draw(h2, 1, bound=0.5), draw(1),
             draw(n_img, n_txt))
+
+
+def _dh_txt_from_bits(args, bits):
+    """dh_txt in float64 with the z2 > 0 mask read from ``bits`` and the
+    t > 0 mask from the float32 z1 = (h_img + h_txt) + b1 the kernels form."""
+    import torch
+
+    h_img, h_txt, b1, w2, _, w3, _, g = args
+    n_img, n_txt, h2 = h_img.shape[0], h_txt.shape[0], w2.shape[1]
+    shifts = torch.arange(32, dtype=torch.int32)
+    mask = ((bits[..., None] >> shifts) & 1).reshape(n_img, n_txt, -1)
+    t_pos = (h_img[:, None, :] + h_txt[None, :, :]) + b1 > 0
+    dz2 = (g.double()[..., None] * w3.double().reshape(-1)) \
+        * mask[..., :h2].double()
+    return ((dz2 @ w2.double().T) * t_pos).sum(0)
+
+
+def _bits_probe(pc) -> dict:
+    """bwd_txt on the "tiles" case: with one bit of bwd_img's bits flipped
+    (a pair and column where g and w3 are not 0), against
+    ``_dh_txt_from_bits`` on the flipped bits ("flipped") and how far the
+    flip moves it ("flip_moves"); and added into a given dh_txt ("added";
+    "given": the given values against the sums alone), max |Δ| over max
+    |reference|."""
+    import torch
+
+    n_img, n_txt, h1, h2, exact = CASES["tiles"]
+    gen = torch.Generator().manual_seed(n_img + 2)
+    args = _draw(gen, exact, n_img, n_txt, h1, h2)
+    bargs = (*args[:6], args[7])
+    bits = pc.bwd_img_kernel(bargs, torch.empty(n_img, h1), torch.empty(
+        -(-n_img // pc._IMG_ROWS), 2 * h2 + 1))
+    i = n_img // 2
+    j = next(j for j in range(n_txt // 2, n_txt) if args[7][i, j] != 0)
+    n = next(n for n in range(33, h2) if args[5][n, 0] != 0 and n % 32 != 31)
+    flipped = bits.clone()
+    flipped[i * n_txt + j, n // 32] ^= 1 << (n % 32)
+
+    def scaled(got, want):
+        return ((got.double() - want).abs().max()
+                / want.abs().max()).item()
+
+    want = _dh_txt_from_bits(args, flipped)
+    plain = _dh_txt_from_bits(args, bits)
+    given = torch.randn(n_txt, h1, generator=gen)
+    return {"flipped": scaled(pc.bwd_txt_kernel(bargs, flipped), want),
+            "flip_moves": scaled(plain, want),
+            "added": scaled(pc.bwd_txt_kernel(bargs, bits, given.clone()),
+                            given.double() + plain),
+            "given": scaled(plain, given.double() + plain)}
 
 
 def _errors(got, want) -> dict:

@@ -13,8 +13,12 @@ weight layouts, the chaining of the two products through shared memory and
 the fixed-order column sums without a card; the card's compiler, its
 memory model and every time come only from chip_smoke.py.  Shapes (T, d,
 f): one row tile, a sub-tile T, ragged T over several tiles with d = 256
-(two column groups a thread), each in float32; the ragged one in bfloat16
-too.  Weights are given as transposed views of (out, in) tensors (passed by
+(two column groups a thread), each in float32; in bfloat16, where the
+forward is its own tensor-core kernel (the stand-in emulates mma.sync
+m16n8k16, ldmatrix and cp.async), the ragged one, a sub-tile T with f =
+384 (its last 256-column chunk half past f), the small shape of
+chip_smoke.py's FFN_SHAPES (T = 100: no multiple of the 32-row tile) and
+d = 1024 (its 16-deep w2 stages) with f = 128.  Weights are given as transposed views of (out, in) tensors (passed by
 pointer) except in the ``row_major`` case (copied by the wrapper).
 
 Tolerances, max |got − want| over max |want|: float32 1e-5 (the two sum
@@ -42,7 +46,10 @@ CASES = {"one_tile": (32, 128, 128, "float32", False),
          "sub_tile": (5, 128, 256, "float32", False),
          "ragged": (70, 256, 384, "float32", False),
          "row_major": (33, 128, 256, "float32", True),
-         "ragged_bf16": (70, 256, 256, "bfloat16", False)}
+         "ragged_bf16": (70, 256, 256, "bfloat16", False),
+         "sub_tile_bf16": (5, 128, 384, "bfloat16", False),
+         "small_bf16": (100, 256, 512, "bfloat16", False),
+         "wide_bf16": (33, 1024, 128, "bfloat16", False)}
 OUTPUTS = ("y", "h", "dx", "dh", "dw1", "db1", "dw2")
 TOL = {"float32": dict.fromkeys(OUTPUTS, 1e-5),
        "bfloat16": {**dict.fromkeys(("y", "h", "dx", "dh"), 2e-2),
