@@ -360,7 +360,17 @@ SASS_FUNCTIONS = {
     "fused_ffn_fwd_bf16": (ff.FWD_SOURCE, ("9tc_kernel",), "HMMA"),
     "fused_ffn_fwd_f32": (ff.FWD_SOURCE, ("row_tile_kernelILi",), None),
     "fused_ffn_bwd_a_bf16": (ff.BWD_SOURCE, ("9tc_kernel",), "HMMA"),
-    "fused_ffn_bwd_a_f32": (ff.BWD_SOURCE, ("row_tile_kernelILi",), None)}
+    "fused_ffn_bwd_a_f32": (ff.BWD_SOURCE, ("row_tile_kernelILi",), None),
+    # rows 10 and 11: bf16 on wgmma (wgrad_kernel<GELU_A, SUM_A>) with the
+    # fixed-order sum of its ranges of T, f32 on the CUDA cores
+    "fused_ffn_bwd_b1_bf16": (ff.BWD_SOURCE, ("wgrad_kernelILb0ELb1E",),
+                              "HGMMA"),
+    "fused_ffn_bwd_b2_bf16": (ff.BWD_SOURCE, ("wgrad_kernelILb1ELb0E",),
+                              "HGMMA"),
+    "fused_ffn_bwd_b_reduce_bf16": (ff.BWD_SOURCE, ("wgrad_reduce_kernel",),
+                                    None),
+    "fused_ffn_bwd_b1_f32": (ff.BWD_SOURCE, ("acc_kernelIfLb0ELb1E",), None),
+    "fused_ffn_bwd_b2_f32": (ff.BWD_SOURCE, ("acc_kernelIfLb1ELb0E",), None)}
 TENSOR_OPS = ("HMMA", "HGMMA")
 
 
@@ -368,10 +378,11 @@ def sass_counts(libs: dict) -> dict:
     """{kernel: {"HMMA": n, "HGMMA": n}}: the tensor-core instructions in
     its SASS (mma.sync shows as HMMA, wgmma as HGMMA), from ``cuobjdump
     -sass`` of the built libraries.  Raises unless each kernel of
-    SASS_FUNCTIONS has the kind it must have (the critic forward HGMMA; the
-    bfloat16 flash kernels, the critic backward's kernels and the bfloat16
-    fused FFN forward and backward A HMMA) and the float32 flash and fused
-    FFN kernels neither."""
+    SASS_FUNCTIONS has the kind it must have (the critic forward and the
+    bfloat16 fused FFN weight gradients HGMMA; the bfloat16 flash kernels,
+    the critic backward's kernels and the bfloat16 fused FFN forward and
+    backward A HMMA) and the float32 flash and fused FFN kernels and the
+    weight gradients' reduce neither."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     per_function = {}
     for src in sorted({lib for lib, _, _ in SASS_FUNCTIONS.values()}):
@@ -797,8 +808,10 @@ def ffn_inputs(t, d, f, dtype, gen, device):
 def check_ffn(device, shapes=FFN_SHAPES) -> dict:
     """The four fused FFN kernels against their plain versions on the same
     inputs (the backward kernels on the plain forward's h and the plain
-    backward's dh), per shape and dtype; raises past FFN_TOL.  Returns the
-    largest max abs error per (kernel name, dtype)."""
+    backward's dh), per shape and dtype; raises past FFN_TOL, or if a
+    second call of B1 or B2 gives other bits (their sums over T have a
+    fixed order).  Returns the largest max abs error per (kernel name,
+    dtype)."""
     gen = torch.Generator(device=device).manual_seed(SEED + 11)
     worst = {(n, dt): 0.0 for n in ff.KERNELS.values() for dt in DTYPES}
     for t, d, f in shapes:
@@ -814,7 +827,12 @@ def check_ffn(device, shapes=FFN_SHAPES) -> dict:
             got = {"fwd": ff.fwd(x, w1, b1, w2, b2),
                    "bwd_a": ff.bwd_a(dy, h, w1, w2),
                    "bwd_b1": ff.bwd_b1(x, dh), "bwd_b2": (ff.bwd_b2(dy, h),)}
+            again = [*ff.bwd_b1(x, dh), ff.bwd_b2(dy, h)]
             _sync(device)
+            if not all(torch.equal(a, b) for a, b in zip(
+                    [*got["bwd_b1"], *got["bwd_b2"]], again)):
+                raise AssertionError(f"fused FFN B1 / B2 gave other bits on a "
+                                     f"second call at {(t, d, f)} {dt}")
             errs = {}
             for kind, names in FFN_OUTPUTS.items():
                 for name, a, b in zip(names, got[kind], want[kind]):
@@ -826,13 +844,13 @@ def check_ffn(device, shapes=FFN_SHAPES) -> dict:
             print(f"  fused_ffn {(t, d, f)} {dt}: scaled max err "
                   + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
                   + f" (tol {FFN_TOL[dt]['y']:.0e}, weight gradients "
-                  f"{FFN_TOL[dt]['dw1']:.0e})")
+                  f"{FFN_TOL[dt]['dw1']:.0e}); B1, B2 the same bits twice")
             bad = [n for n, e in errs.items() if not e <= FFN_TOL[dt][n]]
             if bad:
                 raise AssertionError(f"fused FFN kernels disagree with their "
                                      f"plain versions at {(t, d, f)} {dt}: "
                                      f"{bad} {errs}")
-            del got, want, x, w1, w2, dy, h, dh
+            del got, again, want, x, w1, w2, dy, h, dh
     return worst
 
 
@@ -1213,7 +1231,12 @@ def time_ffn(shape=FFN_SHAPE) -> dict:
     plain version, its bound, and the unfused path: ``F.linear``,
     ``F.gelu(approximate="tanh")``, ``F.linear`` and autograd through them
     (cuBLAS and elementwise kernels: several calls, a yardstick the port's
-    fused path never calls, and no single library call)."""
+    fused path never calls, and no single library call).  B1 and B2 also
+    beside one cuBLAS call each (``library_ms``): ``torch.mm(dh.t(), x)``,
+    dw1 in the inputs' dtype without db1, and ``torch.mm(dy.t(), g)``, the
+    product alone, g = T(gelu_tanh(h)) made before the timed window; and
+    their device time under the profiler (``device_ms``: the kernels' own
+    time, the host's between back-to-back calls left out)."""
     card = card_line()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
     out = {}
@@ -1221,6 +1244,9 @@ def time_ffn(shape=FFN_SHAPE) -> dict:
         x, w1, b1, w2, b2, dy = ffn_inputs(*shape, dt, gen, "cuda")
         _, h = ff.fwd(x, w1, b1, w2, b2)
         _, dh = ff.bwd_a(dy, h, w1, w2)
+        g = ff.gelu_tanh(h.float()).to(dt)
+        library = {"bwd_b1": lambda: torch.mm(dh.t(), x),
+                   "bwd_b2": lambda: torch.mm(dy.t(), g)}
         pairs = {"fwd": (lambda: ff.fwd(x, w1, b1, w2, b2),
                          lambda: ff.fwd_plain(x, w1, b1, w2, b2)),
                  "bwd_a": (lambda: ff.bwd_a(dy, h, w1, w2),
@@ -1250,13 +1276,21 @@ def time_ffn(shape=FFN_SHAPE) -> dict:
         for kind, (kernel, plain) in pairs.items():
             ms = time_ms(kernel, iters=FFN_TIMED, warmup=1)
             plain_ms = time_ms(plain, iters=3, warmup=1)
+            library_ms = time_ms(library[kind], iters=FFN_TIMED, warmup=1) \
+                if kind in library else None
             bound_ms, bound_by = bounds[kind]
             out[kind, dt] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by, library_ms=None)
-            print(f"  {ff.KERNELS[kind]} {shape} {dt}: kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                  f"({bound_by}), kernel at {100 * bound_ms / ms:.1f}% of the"
-                  f" bound  [{card}]")
+                                 bound_by=bound_by, library_ms=library_ms)
+            if kind in library:     # without the host's time between calls
+                out[kind, dt]["device_ms"] = device_ms(kernel, iters=20)
+            print(f"  {ff.KERNELS[kind]} {shape} {dt}: kernel {ms:.4f} ms"
+                  + (f" (device {out[kind, dt]['device_ms']:.4f} ms)"
+                     if kind in library else "")
+                  + f", plain {plain_ms:.4f} ms, "
+                  + (f"one cuBLAS call {library_ms:.4f} ms, "
+                     if library_ms else "")
+                  + f"bound {bound_ms:.4f} ms ({bound_by}), kernel at "
+                  f"{100 * bound_ms / ms:.1f}% of the bound  [{card}]")
         bwd_ms = sum(out[k, dt]["ms"] for k in ("bwd_a", "bwd_b1", "bwd_b2"))
         print(f"  fused FFN {shape} {dt}: forward kernel "
               f"{out['fwd', dt]['ms']:.4f} ms against the unfused forward "
@@ -1267,7 +1301,7 @@ def time_ffn(shape=FFN_SHAPE) -> dict:
         out["fwd", dt]["unfused_fwd_ms"] = unfused_ms["fwd"]
         out["bwd_a", dt]["unfused_bwd_ms"] = unfused_ms["bwd"]
         out["bwd_a", dt]["fused_bwd_ms"] = bwd_ms
-        del x, w1, w2, dy, h, dh, leaves
+        del x, w1, w2, dy, h, dh, g, leaves, library
         torch.cuda.empty_cache()
     return out
 
@@ -2657,6 +2691,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    started = time.perf_counter()
 
     print("== phase 1: versions and build")
     tensor_ops = sass_counts(versions_and_build())
@@ -2773,6 +2808,8 @@ def main() -> int:
             **stem_times[kind, torch.bfloat16],
             "f32": {"max_abs_err": stem_worst[name, torch.float32],
                     **stem_times[kind, torch.float32]}})
+    print(f"chip_smoke: all phases in {time.perf_counter() - started:.1f} s "
+          f"(the time limit is 1200 s)")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -71,18 +71,11 @@ __device__ __forceinline__ float dgelu_tanh(float h) {
 }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) {
   return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even
 }
 // v rounded to T, as f32: the value a later product sees
 template <typename T>
@@ -90,19 +83,10 @@ __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
 }
 
-struct __align__(8) bf16x4 {
-  __nv_bfloat16 v[4];
-};
-
-// 4 consecutive elements (16 or 8 aligned bytes) as f32
+// 4 consecutive elements (16 aligned bytes)
 __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
   const float4 t = *reinterpret_cast<const float4*>(p);
   v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
-  const bf16x4 t = *reinterpret_cast<const bf16x4*>(p);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) v[e] = __bfloat162float(t.v[e]);
 }
 
 __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {

@@ -26,9 +26,10 @@
 //     row stage_k(8kk + c) = 4(c % 4) + 2kk + c / 4: then a thread's A
 //     values for a stage are 4 consecutive k of each of its two rows (k =
 //     4t .. 4t + 3), one 16-byte load each.
-//   * mbarrier init, arrive, arrive.expect_tx and the parity wait, and
-//     cp.async.bulk from global to shared memory completed on an mbarrier
-//     (no tensor map: the image is already laid out).
+//   * from hopper.cuh: mbarrier init, arrive, arrive.expect_tx and the
+//     parity wait, cp.async.bulk from global to shared memory completed on
+//     an mbarrier (no tensor map: the image is already laid out), and
+//     wgmma's fence, commit and wait.
 //
 // tests/cuda_cpu/cuda_runtime.h defines CUDA_CPU_STANDIN and gives a CPU
 // version of each PTX wrapper below (the descriptor decoded from the PTX
@@ -37,83 +38,10 @@
 
 #include <cstdint>
 
+#include "hopper.cuh"
 #include "warp_mma.cuh"
 
 #ifndef CUDA_CPU_STANDIN
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// the barriers' initialisation visible to the async proxy (the copies)
-__device__ __forceinline__ void fence_mbar_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-// arrive, and expect `bytes` more of copies before the phase completes
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
-                                                      unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// wait until the barrier's phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
-// to shared memory, completing that many bytes of `bar`'s phase
-__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src,
-                                              unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// orders this warpgroup's register and shared-memory accesses before the
-// wgmma that follow
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// until at most n committed groups of this warpgroup are in flight
-template <int n>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(n) : "memory");
-}
-
-// keeps the compiler from moving accesses of the accumulators across the
-// asynchronous products
-__device__ __forceinline__ void wgmma_fence_acc(float (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // d += A·B, A (64 x 8 tf32) from this thread's fragment a, B (8 x 256 tf32)
 // by the descriptor desc_b

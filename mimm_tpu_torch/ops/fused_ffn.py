@@ -8,6 +8,9 @@ does (:171), h being the pre-GELU activation rounded to the compute dtype.
 For CUDA tensors the forward launches ``csrc/fused_ffn_fwd.cu`` and the
 backward the three kernels of ``csrc/fused_ffn_bwd.cu`` (A: dx and dh; B1:
 dw1 and db1; B2: dw2); ``db2 = Σ_rows dy`` is a plain sum, as in JAX (:217).
+In bfloat16, B1 and B2 split T into ranges by the card's SM count and add
+the ranges' float32 partials in a fixed order; the wrapper allocates their
+workspace (``_workspace``).
 For CPU tensors each kernel's wrapper computes its plain version, the same
 function in plain PyTorch with the kernels' casts: every product sums in
 float32, the forward applies the GELU to the float32 h before rounding it,
@@ -155,27 +158,53 @@ def _launch(fn, like: torch.Tensor, *args) -> int:
         return fn(*args, torch.cuda.current_stream(like.device).cuda_stream)
 
 
-def _entry(source: str, name: str, pointers: int):
+def _entry(source: str, name: str, pointers: int, ints: int = 4):
     from mimm_tpu_torch.ops import _build
 
     fn = getattr(_build.load(source), name)
-    fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 4 \
+    fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _run(kind: str, source: str, pointers, like: torch.Tensor, shape) -> None:
-    """Launch kernel ``kind`` on ``pointers`` + (T, d, f, dtype code) and
-    count it; raises if the launch is refused."""
+def _run(kind: str, source: str, pointers, like: torch.Tensor, shape,
+         *extra: int) -> None:
+    """Launch kernel ``kind`` on ``pointers`` (None for a null one) + (T,
+    d, f, dtype code, *extra) and count it; raises if the launch is
+    refused."""
     _check_kernel(*shape)
-    fn = _entry(source, f"mimm_{KERNELS[kind]}", len(pointers))
-    err = _launch(fn, like, *(p.data_ptr() for p in pointers), *shape,
-                  _DTYPE_CODES[like.dtype])
+    fn = _entry(source, f"mimm_{KERNELS[kind]}", len(pointers),
+                4 + len(extra))
+    err = _launch(fn, like, *(None if p is None else p.data_ptr()
+                              for p in pointers), *shape,
+                  _DTYPE_CODES[like.dtype], *extra)
     if err != 0:
         raise RuntimeError(f"{KERNELS[kind]} launch failed: cudaError_t {err}"
                            f" at (T, d, f) = {shape}, {like.dtype}")
     LAUNCHES[KERNELS[kind]] += 1
+
+
+def _sm_count(like: torch.Tensor) -> int:
+    """The SM count of ``like``'s card: the bfloat16 weight-gradient
+    kernels split T by it."""
+    return torch.cuda.get_device_properties(like.device).multi_processor_count
+
+
+def _workspace(like: torch.Tensor, t: int, d: int, f: int, sms: int):
+    """The float32 workspace of the bfloat16 B1 / B2 kernels' partial sums
+    over ranges of T (their C entry point sizes it); None for one range or
+    float32."""
+    if like.dtype != torch.bfloat16:
+        return None
+    from mimm_tpu_torch.ops import _build
+
+    fn = _build.load(BWD_SOURCE).mimm_fused_ffn_bwd_b_workspace
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
+    n = fn(t, d, f, sms)
+    return torch.empty(n, dtype=torch.float32, device=like.device) \
+        if n else None
 
 
 def fwd_kernel(x, w1, b1, w2, b2):
@@ -202,8 +231,10 @@ def bwd_b1_kernel(x, dh):
     (t, d), f = x.shape, dh.shape[1]
     dw1 = torch.empty(f, d, dtype=torch.float32, device=x.device)
     db1 = torch.empty(f, dtype=torch.float32, device=x.device)
-    _run("bwd_b1", BWD_SOURCE, (_dense(x), _dense(dh), dw1, db1), x,
-         (t, d, f))
+    sms = _sm_count(x)
+    _run("bwd_b1", BWD_SOURCE, (_dense(x), _dense(dh), dw1, db1,
+                                _workspace(x, t, d, f, sms)), x, (t, d, f),
+         sms)
     return dw1.t(), db1
 
 
@@ -212,7 +243,10 @@ def bwd_b2_kernel(dy, h):
     tensor, the layout of ``output.dense.weight``."""
     (t, d), f = dy.shape, h.shape[1]
     dw2 = torch.empty(d, f, dtype=torch.float32, device=dy.device)
-    _run("bwd_b2", BWD_SOURCE, (_dense(dy), _dense(h), dw2), dy, (t, d, f))
+    sms = _sm_count(dy)
+    _run("bwd_b2", BWD_SOURCE, (_dense(dy), _dense(h), dw2,
+                                _workspace(dy, t, d, f, sms)), dy, (t, d, f),
+         sms)
     return dw2.t()
 
 

@@ -10,14 +10,18 @@
 // grow with the host's load.  The warp-level primitives of
 // mimm_tpu_torch/csrc/warp_mma.cuh (shuffles, ldmatrix, mma.sync m16n8k16
 // bf16 and m16n8k8 tf32, cvt.rna.tf32.f32, cp.async, ex2) and the Hopper
-// primitives of csrc/wgmma_tf32.cuh (wgmma.mma_async m64n256k8 tf32 with A
-// from registers and B from a shared-memory matrix descriptor, its fence
-// and group waits, mbarrier, cp.async.bulk) are given here from the PTX
-// ISA's fragment tables and descriptor layout: the 32 lanes of a warp (the
-// 128 of a warpgroup) meet at a barrier of their own, post their operands,
-// and each lane computes its own result from all of them.  cp.async and
-// cp.async.bulk are synchronous copies; cp.async's waits and wgmma's fence
-// and waits do nothing (wgmma computes when issued).  Exited threads leave
+// primitives of csrc/hopper.cuh, csrc/wgmma_tf32.cuh and
+// csrc/wgmma_bf16.cuh (wgmma.mma_async m64n256k8 tf32 with A from
+// registers and B from a shared-memory matrix descriptor, m64n256k16 bf16
+// with both operands MN-major by descriptors, its fence and group waits,
+// mbarrier, cp.async.bulk, the 2-D TMA tile load in the 128-byte swizzle
+// with its tensor map, fence.proxy.async, a warpgroup's named barrier) are
+// given here from the PTX ISA's fragment tables and descriptor layout: the
+// 32 lanes of a warp (the 128 of a warpgroup) meet at a barrier of their
+// own, post their operands, and each lane computes its own result from
+// all of them.  cp.async, cp.async.bulk and the TMA load are synchronous
+// copies; cp.async's waits, wgmma's fence and waits and the proxy fence
+// do nothing (wgmma computes when issued).  Exited threads leave
 // the barriers they would have met, as on the card.  Compiled with g++
 // -std=c++20 after the test rewrites `kernel<<<...>>>(args)` into
 // emu_launch(kernel, ..., args) and `extern __shared__ ... name[];` into a
@@ -398,7 +402,8 @@ inline unsigned pack_bf16(float x, float y) {
 inline void cp_async_commit() {}
 template <int n>
 void cp_async_wait() {}
-// ---- Hopper: mbarrier, cp.async.bulk, wgmma (csrc/wgmma_tf32.cuh) ---------
+// ---- Hopper: mbarrier, cp.async.bulk, wgmma tf32 (csrc/hopper.cuh,
+// csrc/wgmma_tf32.cuh) --------------------------------------------------------
 // A shared-memory address is the offset from the dynamic shared memory's
 // base; the kernels that take one keep their operands there.
 inline unsigned smem_addr(const void* p) {
@@ -516,6 +521,119 @@ inline void wgmma_m64n256k8_tf32(float (&d)[128], const unsigned (&a)[4],
       for (int h = 0; h < 2; ++h) {
         float acc = 0.f;
         for (int k = 0; k < 8; ++k) acc += A[r + 8 * h][k] * b[k];
+        d[4 * j + 2 * h + c] += acc;
+      }
+    }
+}
+
+// ---- Hopper: TMA tensor maps and wgmma bf16 (csrc/hopper.cuh,
+// csrc/wgmma_bf16.cuh) -------------------------------------------------------
+// A tensor map of the stand-in's own: the matrix and its box; the card's is
+// an opaque 128 bytes from cuTensorMapEncodeTiled.
+#define __grid_constant__
+struct alignas(64) CUtensorMap {
+  const unsigned char* base;
+  int rows, cols, box_rows;
+};
+inline int tmap_2d_bf16(CUtensorMap* map, const void* base, int rows,
+                        int cols, int box_rows) {
+  if (reinterpret_cast<uintptr_t>(base) % 16 || rows < 1 || cols < 1 ||
+      cols % 8 || box_rows < 1 || box_rows > 256)
+    return (int)cudaErrorInvalidValue;
+  *map = CUtensorMap{static_cast<const unsigned char*>(base), rows, cols,
+                     box_rows};
+  return 0;
+}
+// the box (box_rows x 64 bf16 at column col, row row) into shared memory
+// at dst in the 128-byte swizzle: element (r, c) at byte r·128 + 2c of the
+// box, the 16-byte chunk bits 4-6 of the address XOR'd with its bits 7-9;
+// zeros past the matrix's edges
+inline void tma_load_2d(void* dst, const CUtensorMap* map, int col, int row,
+                        uint64_t* bar) {
+  const unsigned at = smem_addr(dst);
+  if (at % 1024) {
+    std::fprintf(stderr, "cuda_cpu: a 128-byte-swizzled TMA box at a "
+                 "shared-memory address that is not 1024-byte aligned\n");
+    std::abort();
+  }
+  unsigned char* smem = reinterpret_cast<unsigned char*>(emu_dyn_base);
+  for (int r = 0; r < map->box_rows; ++r)
+    for (int c = 0; c < 64; ++c) {
+      const long long gr = (long long)row + r, gc = (long long)col + c;
+      uint16_t v = 0;
+      if (gr >= 0 && gr < map->rows && gc >= 0 && gc < map->cols)
+        std::memcpy(&v, map->base + 2 * (gr * map->cols + gc), 2);
+      unsigned o = at + 128 * r + 2 * c;
+      o ^= ((o >> 7) & 7) << 4;
+      std::memcpy(smem + o, &v, 2);
+    }
+  emu_mbar(bar).tx -= map->box_rows * 128;
+  emu_mbar_step(emu_mbar(bar));
+}
+inline void fence_proxy_async() {}
+// the stand-in's named barriers are the warpgroups' own
+inline void named_bar_sync(int, int count) {
+  if (count != 128) {
+    std::fprintf(stderr, "cuda_cpu: a named barrier of %d threads (the "
+                 "stand-in gives one of a warpgroup's 128)\n", count);
+    std::abort();
+  }
+  emu_groups[emu_tid / 128]->bar.arrive_and_wait();
+}
+
+// element (mn, k) of an MN-major 16-bit operand by its descriptor (PTX
+// ISA, "Matrix Descriptor Format"; CUTLASS's canonical MN-major layouts)
+// in a swizzled layout (1, 2, 3: 128-, 64-, 32-byte rows of W = 64, 32, 16
+// elements): row k of a panel of W columns at (k / 8)·SBO + (k % 8)·2W
+// bytes, panels LBO apart, then the swizzle of the address; as bf16
+inline float emu_desc_mn_bf16(uint64_t desc, int mn, int k) {
+  const uint32_t start = (uint32_t)(desc & 0x3FFF) << 4;
+  const uint32_t lbo = (uint32_t)((desc >> 16) & 0x3FFF) << 4;
+  const uint32_t sbo = (uint32_t)((desc >> 32) & 0x3FFF) << 4;
+  const unsigned mode = (unsigned)(desc >> 62);
+  if (((desc >> 49) & 7) || mode == 0) {
+    std::fprintf(stderr, "cuda_cpu: an MN-major descriptor with a base "
+                 "offset or no swizzle (not emulated)\n");
+    std::abort();
+  }
+  const unsigned bits = 4 - mode, w = 8u << bits;
+  uint32_t addr = start + (mn / w) * lbo + (k / 8) * sbo + (k % 8) * 2 * w +
+                  (mn % w) * 2;
+  addr ^= ((addr >> 7) & ((1u << bits) - 1)) << 4;
+  uint16_t u;
+  std::memcpy(&u, reinterpret_cast<const char*>(emu_dyn_base) + addr, 2);
+  return emu_bf16(u);
+}
+
+// wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 with both operands
+// MN-major (the transpose bits set), d += A·B: the 128 lanes check that
+// they give one pair of descriptors; the products of bf16 values are exact
+// in float32, each lane sums its 16 in k order and adds the sum to d
+inline void wgmma_m64n256k16_bf16_mn(float (&d)[128], uint64_t desc_a,
+                                     uint64_t desc_b) {
+  struct Descs {
+    uint64_t a, b;
+  } mine{desc_a, desc_b}, all[128];
+  emu_groups[emu_tid / 128]->gather(emu_tid % 128, mine, all);
+  for (int l = 0; l < 128; ++l)
+    if (all[l].a != desc_a || all[l].b != desc_b) {
+      std::fprintf(stderr, "cuda_cpu: the lanes of a warpgroup give a wgmma "
+                   "different descriptors\n");
+      std::abort();
+    }
+  const int l = emu_tid % 128;
+  const int r = 16 * (l / 32) + (l % 32) / 4, t = l % 4;
+  float A[2][16];
+  for (int h = 0; h < 2; ++h)
+    for (int k = 0; k < 16; ++k) A[h][k] = emu_desc_mn_bf16(desc_a, r + 8 * h, k);
+  for (int j = 0; j < 32; ++j)
+    for (int c = 0; c < 2; ++c) {
+      const int n = 8 * j + 2 * t + c;
+      float b[16];
+      for (int k = 0; k < 16; ++k) b[k] = emu_desc_mn_bf16(desc_b, n, k);
+      for (int h = 0; h < 2; ++h) {
+        float acc = 0.f;
+        for (int k = 0; k < 16; ++k) acc += A[h][k] * b[k];
         d[4 * j + 2 * h + c] += acc;
       }
     }

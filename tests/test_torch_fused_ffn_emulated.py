@@ -22,6 +22,16 @@ FFN_SHAPES (T = 100: no multiple of the 32-row tile) and d = 1024 (the
 forward's 16-deep w2 stages) with f = 128.  Weights are given as transposed views of (out, in) tensors (passed by
 pointer) except in the ``row_major`` case (copied by the wrapper).
 
+The bfloat16 weight gradients B1 and B2 are fused_ffn_bwd.cu's
+wgrad_kernel on wgmma m64n256k16 (both operands MN-major by descriptors in
+the 128-byte swizzle, brought by 2-D TMA boxes on mbarriers, which the
+stand-in emulates with zero fill past the matrix), over ranges of T whose
+partials wgrad_reduce_kernel adds: ``ranges_bf16`` splits T = 805 into 3
+ranges, the last ragged; ``wide_ranges_bf16`` runs d = 1024 over 2;
+``ragged_d_bf16`` has d = 384, a 256-column tile half past d.  Every case
+calls B1 and B2 a second time and must get the same bits, and a probe
+holds one emulated wgmma against torch.matmul.
+
 Tolerances, max |got − want| over max |want|: float32 1e-5 (the two sum
 in another order, and the FMAs contract differently); bfloat16 outputs 2e-2
 (a sum that lands near a rounding boundary may round the other way: one
@@ -50,11 +60,90 @@ CASES = {"one_tile": (32, 128, 128, "float32", False),
          "ragged_bf16": (70, 256, 256, "bfloat16", False),
          "sub_tile_bf16": (5, 128, 384, "bfloat16", False),
          "small_bf16": (100, 256, 512, "bfloat16", False),
-         "wide_bf16": (33, 1024, 128, "bfloat16", False)}
+         "wide_bf16": (33, 1024, 128, "bfloat16", False),
+         "ranges_bf16": (805, 256, 128, "bfloat16", False),
+         "wide_ranges_bf16": (520, 1024, 128, "bfloat16", False),
+         "ragged_d_bf16": (300, 384, 256, "bfloat16", False)}
+# the SM count the child gives the wrapper: the H100's
+SMS = 132
+# splits of T the bfloat16 weight-gradient kernels take (the rest one):
+# 13 stages of 64 rows in ranges of 5, 5, 3 (the last ragged: 805 = 12·64
+# + 37), and 9 in ranges of 5, 4
+SPLITS = {"ranges_bf16": 3, "wide_ranges_bf16": 2}
 OUTPUTS = ("y", "h", "dx", "dh", "dw1", "db1", "dw2")
+# the weight-gradient kernels' outputs, which a second call must give again
+RERUN = ("dw1", "db1", "dw2")
+# the bf16 wgmma probe: one warpgroup, 4 m64n256k16 steps (K = 64) on TMA
+# boxes against torch.matmul of the same bf16 values in float32 (products
+# exact, 64-term f32 sums in another order)
+WGMMA_TOL = 1e-5
 TOL = {"float32": dict.fromkeys(OUTPUTS, 1e-5),
        "bfloat16": {**dict.fromkeys(("y", "h", "dx", "dh"), 2e-2),
                     **dict.fromkeys(("dw1", "db1", "dw2"), 1e-2)}}
+
+
+WGMMA_PROBE_SRC = r'''
+#include <cuda_runtime.h>
+
+#include "hopper.cuh"
+#include "wgmma_bf16.cuh"
+
+// a: 64 x 64 (K x M), b: 64 x 256 (K x N), bf16, row-major, by their
+// tensor maps.  One warpgroup: a as one panel and b as four, 2-D TMA
+// boxes of 64 rows in the 128-byte swizzle on an mbarrier, then out (64 x
+// 256, f32) = aᵀ·b by four wgmma m64n256k16 steps, both operands
+// MN-major, as csrc/fused_ffn_bwd.cu's wgrad_kernel takes a stage.
+constexpr unsigned PANEL_BYTES = 64 * wgmma_bf16::ROW_BYTES;
+
+__global__ void probe_kernel(const __grid_constant__ CUtensorMap ta,
+                             const __grid_constant__ CUtensorMap tb,
+                             float* out) {
+  extern __shared__ __align__(16) float smem[];
+  unsigned char* tile = reinterpret_cast<unsigned char*>(smem) +
+                        ((1024 - (smem_addr(smem) & 1023)) & 1023);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(tile + 5 * PANEL_BYTES);
+  const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, t = lane % 4;
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_arrive_expect_tx(bar, 5 * PANEL_BYTES);
+    tma_load_2d(tile, &ta, 0, 0, bar);
+    for (int p = 0; p < 4; ++p)
+      tma_load_2d(tile + PANEL_BYTES * (1 + p), &tb, 64 * p, 0, bar);
+  }
+  mbar_wait(bar, 0);
+  float d[128];
+  for (int e = 0; e < 128; ++e) d[e] = 0.f;
+  wgmma_fence();
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_m64n256k16_bf16_mn(
+        d,
+        wgmma_bf16::desc_mn_sw128(tile + 2048 * kk, PANEL_BYTES),
+        wgmma_bf16::desc_mn_sw128(tile + PANEL_BYTES + 2048 * kk,
+                                  PANEL_BYTES));
+  wgmma_commit();
+  wgmma_wait<0>();
+  wgmma_fence_acc(d);
+  const int r = 16 * (tid / 32) + g;
+  for (int j = 0; j < 32; ++j)
+    for (int e = 0; e < 4; ++e)
+      out[(r + 8 * (e / 2)) * 256 + 8 * j + 2 * t + e % 2] = d[4 * j + e];
+}
+
+extern "C" int mimm_wgmma_bf16_probe(const void* a, const void* b,
+                                     void* out) {
+  CUtensorMap ta, tb;
+  int err = tmap_2d_bf16(&ta, a, 64, 64, 64);
+  if (err == 0) err = tmap_2d_bf16(&tb, b, 64, 256, 64);
+  if (err != 0) return err;
+  probe_kernel<<<1, 128, 1024 + 5 * PANEL_BYTES + 8, nullptr>>>(
+      ta, tb, static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+'''
 
 
 @pytest.fixture(scope="module")
@@ -80,6 +169,27 @@ def test_emulated_kernels_launch_once_per_call(results):
     if "skip" in results:
         pytest.skip(results["skip"])
     assert results["launches"] == {n: len(CASES) for n in results["kernels"]}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_emulated_weight_gradients_give_the_same_bits_twice(results, case):
+    """B1 and B2 called again on the same inputs: the same bits (fixed-order
+    sums, no atomics), and the bfloat16 kernels split T as SPLITS says."""
+    if "skip" in results:
+        pytest.skip(results["skip"])
+    assert results["rerun_equal"][case] == dict.fromkeys(RERUN, True)
+    want = SPLITS.get(case, 1) if CASES[case][3] == "bfloat16" else 0
+    assert results["splits"][case] == want
+
+
+def test_emulated_wgmma_bf16_probe(results):
+    """The stand-in's wgmma m64n256k16 bf16 (both operands MN-major by
+    128-byte-swizzled descriptors, brought by 2-D TMA boxes) against
+    torch.matmul of the same values; run WGMMA_PROBE_SRC with nvcc and
+    ``-I mimm_tpu_torch/csrc`` to hold the card's against the same."""
+    if "skip" in results:
+        pytest.skip(results["skip"])
+    assert results["wgmma_probe"] <= WGMMA_TOL, results["wgmma_probe"]
 
 
 def test_emulated_kernels_refuse_other_shapes(results):
@@ -112,8 +222,10 @@ def _child(job):
             libs[name] = ctypes.CDLL(out)
         _build.load = libs.__getitem__      # this child only
         ff._launch = lambda fn, like, *args: fn(*args, None)
+        ff._sm_count = lambda like: SMS
         ff.reset_launch_counts()
-        meta["errors"] = {}
+        meta["errors"], meta["rerun_equal"], meta["splits"] = {}, {}, {}
+        reruns = []
         for case, (t, d, f, dtype, row_major) in CASES.items():
             gen = torch.Generator().manual_seed(t)
             dt = getattr(torch, dtype)
@@ -141,7 +253,16 @@ def _child(job):
                     / b.float().abs().max().clamp_min(1e-30)).item()
                 if a.shape == b.shape and a.dtype == b.dtype else float("inf")
                 for n, a, b in zip(OUTPUTS, got, want)}
+            ws = ff._workspace(x, t, d, f, SMS)
+            meta["splits"][case] = 0 if dt != torch.bfloat16 else (
+                1 if ws is None else ws.numel() // (f * d + f))
+            reruns.append((case, x, dy, want_h, want_dh, got[4:]))
         meta["launches"] = dict(ff.LAUNCHES)
+        for case, x, dy, h, dh, first in reruns:
+            again = [*ff.bwd_b1_kernel(x, dh), ff.bwd_b2_kernel(dy, h)]
+            meta["rerun_equal"][case] = {
+                n: torch.equal(a, b) for n, a, b in zip(RERUN, first, again)}
+        meta["wgmma_probe"] = _wgmma_probe(job)
         meta["kernels"] = list(ff.KERNELS.values())
         meta["refused"] = {}
         for key, (t, d, f) in (("wide", (4, 1152, 128)),
@@ -159,6 +280,35 @@ def _child(job):
     np.savez(os.path.join(job, "out.npz"))
     with open(os.path.join(job, "out.json"), "w") as f:
         json.dump(meta, f)
+
+
+def _wgmma_probe(job) -> float:
+    """The probe's product, max |Δ| over max |reference|."""
+    import ctypes
+
+    import torch
+
+    from mimm_tpu_torch.ops import _build
+    from tests.torch_port_child import build_emulated
+
+    work = os.path.join(job, "wgmma_probe")
+    os.makedirs(work)
+    for name in os.listdir(_build.CSRC):
+        if name.endswith(".cuh"):
+            shutil.copy(os.path.join(_build.CSRC, name), work)
+    src = os.path.join(work, "probe.cu")
+    with open(src, "w") as f:
+        f.write(WGMMA_PROBE_SRC)
+    build_emulated(src, os.path.join(work, "libprobe.so"))
+    fn = ctypes.CDLL(os.path.join(work, "libprobe.so")).mimm_wgmma_bf16_probe
+    fn.argtypes = [ctypes.c_void_p] * 3
+    gen = torch.Generator().manual_seed(13)
+    a = torch.randn(64, 64, generator=gen).to(torch.bfloat16)
+    b = torch.randn(64, 256, generator=gen).to(torch.bfloat16)
+    out = torch.zeros(64, 256)
+    assert fn(a.data_ptr(), b.data_ptr(), out.data_ptr()) == 0
+    want = a.float().t() @ b.float()
+    return ((out - want).abs().max() / want.abs().max()).item()
 
 
 if __name__ == "__main__":
