@@ -297,9 +297,11 @@ FFN_SRC = {
                "mimm_tpu/ops/fused_ffn.py:120")}
 FFN_TIMED = 5              # ~10 ms a launch at FFN_SHAPE
 # the shallow-conv stem kernels: (B, H, W) of the check: the train step's
-# batch of 256² images, a ragged shape (H, W no multiple of the 16 x 64
-# tiles), and a small one; the time at the first
-STEM_SHAPES = ((BATCH, 256, 256), (3, 257, 131), (2, 16, 16))
+# batch of 256² images, a ragged shape (W no multiple of any vector, a
+# ragged last strip), a small one, and W = 196, a multiple of 4 but not of
+# 8 (the float32 vector path and the bfloat16 element path of the forward
+# and dW); the time at the first
+STEM_SHAPES = ((BATCH, 256, 256), (3, 257, 131), (2, 16, 16), (2, 64, 196))
 # kernel against plain version on the same inputs, max |got − want| over
 # max |want|.  The forward and dx kernels round each product and each
 # running sum as the plain versions do, in their order, so they should agree
@@ -370,8 +372,30 @@ SASS_FUNCTIONS = {
     "fused_ffn_bwd_b_reduce_bf16": (ff.BWD_SOURCE, ("wgrad_reduce_kernel",),
                                     None),
     "fused_ffn_bwd_b1_f32": (ff.BWD_SOURCE, ("acc_kernelIfLb0ELb1E",), None),
-    "fused_ffn_bwd_b2_f32": (ff.BWD_SOURCE, ("acc_kernelIfLb1ELb0E",), None)}
+    "fused_ffn_bwd_b2_f32": (ff.BWD_SOURCE, ("acc_kernelIfLb1ELb0E",), None),
+    # rows 12-14: the stem's kernels on the CUDA cores, all four dtype pairs
+    "shallow_conv_fwd": (sc.SOURCE, ("10fwd_kernel",), None),
+    "shallow_conv_dw": (sc.SOURCE, ("9dw_kernel", "dw_reduce_kernel"), None),
+    "shallow_conv_dx": (sc.SOURCE, ("9dx_kernel",), None)}
 TENSOR_OPS = ("HMMA", "HGMMA")
+
+
+def ptxas_usage(report: str) -> dict:
+    """{mangled function: (registers, spill store bytes, spill load bytes)}
+    from an ``nvcc -Xptxas -v`` report."""
+    usage, name, spills = {}, None, (0, 0)
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "bytes spill stores" in line and name:
+            words = line.replace(",", "").split()
+            spills = (int(words[words.index("spill") - 2]),
+                      int(words[words.index("loads") - 3]))
+        elif "Used" in line and "registers" in line and name:
+            words = line.replace(",", "").split()
+            usage[name] = (int(words[words.index("registers") - 1]), *spills)
+            name, spills = None, (0, 0)
+    return usage
 
 
 def sass_counts(libs: dict) -> dict:
@@ -381,10 +405,15 @@ def sass_counts(libs: dict) -> dict:
     SASS_FUNCTIONS has the kind it must have (the critic forward and the
     bfloat16 fused FFN weight gradients HGMMA; the bfloat16 flash kernels,
     the critic backward's kernels and the bfloat16 fused FFN forward and
-    backward A HMMA) and the float32 flash and fused FFN kernels and the
-    weight gradients' reduce neither."""
+    backward A HMMA) and the float32 flash and fused FFN kernels, the
+    weight gradients' reduce and the stem's kernels neither.  Prints each
+    function's registers and spill bytes beside its counts."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     per_function = {}
+    usage = {}
+    for src in {lib for lib, _, _ in SASS_FUNCTIONS.values()}:
+        usage.update({(src, f): u for f, u in
+                      ptxas_usage(_build.ptxas_reports.get(src, "")).items()})
     for src in sorted({lib for lib, _, _ in SASS_FUNCTIONS.values()}):
         sass = subprocess.run([tool, "-sass", libs[src]], capture_output=True,
                               text=True, check=True).stdout
@@ -407,10 +436,14 @@ def sass_counts(libs: dict) -> dict:
                  if lib == src and any(p in f for p in parts)}
         counts[kernel] = {op: sum(c[op] for c in found.values())
                           for op in TENSOR_OPS}
+        regs = ", ".join(
+            f"{f[1]}: {u[0]} registers, spill {u[1]} / {u[2]} bytes "
+            f"stored / loaded" for f, u in sorted(usage.items())
+            if f[0] == src and f[1] in found)
         print(f"  SASS {kernel}: {counts[kernel]['HMMA']} HMMA, "
               f"{counts[kernel]['HGMMA']} HGMMA, "
               f"{sum(c['FFMA/FMUL'] for c in found.values())} FFMA/FMUL in "
-              f"{sorted(found)}")
+              f"{sorted(found)}; ptxas: {regs or 'no report'}")
         held = counts[kernel][must] > 0 if must else \
             not any(counts[kernel].values())
         if not found or not held:
@@ -867,8 +900,9 @@ def stem_inputs(b, h, w, dtype, gen, device):
 
 def check_stem(device, shapes=STEM_SHAPES) -> dict:
     """The three shallow-conv kernels against their plain versions on the
-    same inputs, per shape and dtype; raises past STEM_TOL.  Returns the
-    largest max abs error per (kernel name, dtype)."""
+    same inputs, per shape and dtype, and dW called twice; raises past
+    STEM_TOL or if the two dW calls differ in a bit.  Returns the largest
+    max abs error per (kernel name, dtype)."""
     gen = torch.Generator(device=device).manual_seed(SEED + 14)
     worst = {(n, dt): 0.0 for n in sc.KERNELS.values() for dt in DTYPES}
     for b, h, w in shapes:
@@ -880,7 +914,9 @@ def check_stem(device, shapes=STEM_SHAPES) -> dict:
             _sync(device)
             got = {"fwd": sc.fwd(x, weight, dt), "dw": sc.dw(x, dy, weight),
                    "dx": sc.dx(dy, weight, dt)}
+            dw_again = sc.dw(x, dy, weight)
             _sync(device)
+            same_bits = bool(torch.equal(dw_again, got["dw"]))
             errs = {}
             for kind, a in got.items():
                 b_ = want[kind]
@@ -893,13 +929,16 @@ def check_stem(device, shapes=STEM_SHAPES) -> dict:
                      for k in ("fwd", "dx")}
             print(f"  shallow_conv {(b, h, w)} {dt}: scaled max err "
                   + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
-                  + f" (tol {STEM_TOL[dt]}); bit-equal {exact}")
+                  + f" (tol {STEM_TOL[dt]}); bit-equal {exact}; dW twice: "
+                  f"the same bits {same_bits}")
             bad = [k for k, e in errs.items() if not e <= STEM_TOL[dt][k]]
+            if not same_bits:
+                bad.append("dw twice")
             if bad:
                 raise AssertionError(f"shallow conv kernels disagree with "
                                      f"their plain versions at {(b, h, w)} "
                                      f"{dt}: {bad} {errs}")
-            del got, want, x, dy
+            del got, want, x, dy, dw_again
     return worst
 
 
@@ -2701,14 +2740,18 @@ def main() -> int:
     for name, err in check_critic_normal("cuda").items():
         critic_worst[name] = max(critic_worst[name], err)
     ffn_worst = check_ffn("cuda")
+    t0 = time.perf_counter()
     stem_worst = check_stem("cuda")
+    print(f"  check_stem: {time.perf_counter() - t0:.1f} s")
     print(f"== phase 3: timing at (64, 12, 320, 64), at 2048 x 2048 pairs, "
           f"at (T, d, f) = {FFN_SHAPE} and at (B, H, W) = {STEM_SHAPES[0]}")
     times = time_kernels()
     time_buckets()
     critic_times = time_critic()
     ffn_times = time_ffn()
+    t0 = time.perf_counter()
     stem_times = time_stem()
+    print(f"  time_stem: {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
         print("== phase 4: the serving path over HTTP (full width)")
         serve = drive_serving(root, "cuda")

@@ -17,7 +17,7 @@
 // order k = dr·3 + dc (:66-69) and the input gradient's in the order (dr,
 // dc, c) from zero (:104-110), each output rounded once.  What does not:
 // the zero-padded copies of x (JAX pads by 1, :187) and of dy (by 2, :159)
-// in device memory: the tiles here are loaded with bounds checks; the
+// in device memory: the rows here are loaded with bounds checks; the
 // sequential grid of the dW kernel, which adds every image into one (9, C)
 // block: here each block writes a partial row of 72 sums and a second
 // pass adds the partials in a fixed order (no atomics, so a rerun, remat
@@ -28,19 +28,50 @@
 // move: the forward reads x and writes y, 75.5 MB in bfloat16 (22.5 us at
 // 3.35 TB/s) or 151 MB in float32 (45.1 us); dW reads x and dy, dx reads
 // dy and writes dx, the same bytes.  Bytes bound all three; tensor cores
-// have nothing to do here.  The design is about coalesced traffic.  The
-// forward and dW: 64 x 4 threads, neighbouring threads on neighbouring
-// columns, so each channel plane of y and dy is read or written in whole
-// rows of 64 pixels; the 72 weights in registers; the forward's tile
-// ((16+2) x (64+2) pixels) staged in shared memory, so each input pixel is
-// read from device memory about once.  dx reads 8 channels for every pixel
-// it writes, and its 8-channel tile with a division and a modulus per
-// staged value made it instruction-bound (2.1 x cuDNN's time in bfloat16);
-// it now keeps a rolling 3-row window in registers instead: each lane owns
-// 4 adjacent pixels, loads them with one 16- or 8-byte vector load per
-// channel and row, takes the halo columns from its neighbours by shuffle,
-// and walks up the rows (see dx_kernel), reading each dy row once but for
-// two halo rows per 16.
+// have nothing to do here, so each design is about feeding the memory
+// system with few instructions.  All three walk rows with a rolling 3-row
+// window in registers: a warp owns a strip of 32 x P adjacent columns,
+// each lane P adjacent pixels, loaded with aligned vector loads (the next
+// row in flight during the sums) and kept as the raw words they came in
+// until used; the two halo columns come from the neighbouring lanes by
+// shuffle, the strip's edge lanes load their own.  No shared tile, no
+// division per value; ragged or unaligned widths take the same code's
+// element-by-element path.
+//
+// The forward (fwd_kernel): P = 16 bytes of y (8 pixels in bfloat16, 4 in
+// float32), so a lane writes each channel row as one 16-byte store, and y
+// is 8/9 of the bytes.  To agree with the plain version to the bit it
+// rounds each product and each running sum in tap order (__fmul_rn,
+// __fadd_rn: no FMA), 72 FMUL + 64 FADD = 136 float32 instructions a
+// pixel: 0.57 G lane operations at (64, 256, 256), 17-19 us of issue on 132
+// SMs x 128 lanes at 1.75-1.98 GHz.  That issue floor of the unfused
+// forward lies just under its 22.5 us byte bound in bfloat16, and every
+// load, conversion, shuffle and address takes an issue slot from it; in
+// float32 the bytes bind alone.  What binds it on the card is that the
+// sums and the stores overlap: with the 72 weights in registers (105-142
+// registers, 3-4 blocks an SM) an H100 took 62 / 32 us (float32 /
+// bfloat16), about the issue time plus the time the card takes to write y
+// alone (fill_: 3.2 TB/s); so the weights are read from shared memory as
+// broadcasts, one read a tap and channel for P products, the registers are
+// capped at 80 for FWD_BLOCKS = 6 blocks an SM, and the stores carry the
+// streaming hint (58 / 28 us).  The grid is one wave (the blocks the card
+// holds at once, asked of the runtime), each warp an equal share of the
+// row strips, so no block waits on a tail.
+//
+// dW (dw_kernel + dw_reduce_kernel): the same walk over x, with dy read as
+// one P-pixel vector a channel row (P = 16 bytes of dy), prefetched a row
+// ahead like x; 72 FMA accumulators a lane (dW's tolerance allows FMA and
+// another order of sums): 72 FMA a pixel, about half the byte bound's time
+// in issue, so bytes bind it.  A fixed grid of DW_GRID blocks walks equal
+// shares of the row strips; each warp adds its lanes' sums in a fixed
+// shuffle tree, the block its warps' in a fixed order through shared
+// memory, and writes one partial row of 72; a second pass adds those rows
+// in a fixed order.  The grid does not depend on the card.
+//
+// dx (dx_kernel) reads 8 channels for every pixel it writes: P = 4, and
+// its warp walks dy UP its rows so that each output receives its terms in
+// the plain version's order, reading each dy row once but for two halo
+// rows per 16.
 //
 // Interface: plain extern "C", raw device pointers and the stream; each
 // entry point returns the cudaError_t of its launches
@@ -50,16 +81,18 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "warp_mma.cuh"   // pack_bf16
+
 namespace shallow_conv {
 
 constexpr int C = 8;          // the stem's output channels
 constexpr int K = 9;          // taps
-constexpr int TW = 64;        // tile columns = threads in x
-constexpr int TY = 4;         // threads in y
-constexpr int TH = 16;        // forward tile rows
-constexpr int DW_TH = 64;     // dW rows per block
-constexpr int THREADS = TW * TY;
-constexpr int RED_STRIDE = THREADS + 1;   // dW reduction rows, no conflicts
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int WALK_WARPS = 4;  // warps of a forward or dW block
+constexpr int WALK_THREADS = 32 * WALK_WARPS;
+constexpr int MIN_ROWS = 4;    // fewest row strips a warp gets on small shapes
+constexpr int FWD_BLOCKS = 6;  // forward blocks an SM holds: <= 80 registers
+constexpr int DW_GRID = 2 * 132;   // dW blocks: two on each SM of an H100
 constexpr int RED_THREADS = 256;
 constexpr int DX_PX = 4;              // dx: adjacent pixels a lane owns
 constexpr int DX_COLS = 32 * DX_PX;   // a warp's strip of columns
@@ -67,92 +100,46 @@ constexpr int DX_ROWS = 16;           // output rows a warp walks
 constexpr int DX_WARPS = 4;           // warps of a block, stacked in rows
 constexpr int DX_THREADS = 32 * DX_WARPS;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+// the pixels a lane owns in the forward (of y) and in dW (of dy): 16 bytes
+template <typename T>
+constexpr int VEC_PX = 16 / (int)sizeof(T);
+
+// strips of 32·P columns across W
+template <int P>
+__host__ __device__ constexpr int strips(int W) {
+  return (W + 32 * P - 1) / (32 * P);
 }
+
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// y (B, C, H, W) from x (B, H, W).  Block (TW, TY) threads owns a TH x TW
-// tile of one image; each thread its column and every TY-th row, all C
-// channels.  The sums round as the plain version's do: each product, then
-// each running sum (no fused multiply-add), in tap order.
-template <typename TI, typename TO>
-__global__ void __launch_bounds__(THREADS)
-fwd_kernel(const TI* __restrict__ x, const float* __restrict__ w,
-           TO* __restrict__ y, int H, int W) {
-  __shared__ float tile[TH + 2][TW + 2];
-  const int b = blockIdx.z, r0 = blockIdx.y * TH, s0 = blockIdx.x * TW;
-  const int tid = threadIdx.y * TW + threadIdx.x;
-  const TI* xb = x + (size_t)b * H * W;
-  for (int i = tid; i < (TH + 2) * (TW + 2); i += THREADS) {
-    const int rr = i / (TW + 2), cc = i % (TW + 2);
-    const int r = r0 - 1 + rr, s = s0 - 1 + cc;
-    tile[rr][cc] = (r >= 0 && r < H && s >= 0 && s < W)
-                       ? to_f(xb[(size_t)r * W + s]) : 0.f;
-  }
-  float wr[C * K];
-#pragma unroll
-  for (int j = 0; j < C * K; ++j) wr[j] = w[j];
-  __syncthreads();
-  const int s = s0 + threadIdx.x;
-  const size_t plane = (size_t)H * W;
-  TO* yb = y + (size_t)b * C * plane;
-  for (int rr = threadIdx.y; rr < TH; rr += TY) {
-    const int r = r0 + rr;
-    if (r >= H || s >= W) continue;
-    float v[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) v[k] = tile[rr + k / 3][threadIdx.x + k % 3];
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      float acc = __fmul_rn(v[0], wr[c * K]);
-#pragma unroll
-      for (int k = 1; k < K; ++k)
-        acc = __fadd_rn(acc, __fmul_rn(v[k], wr[c * K + k]));
-      store(yb + c * plane + (size_t)r * W + s, acc);
-    }
-  }
-}
-
-// dx (B, H, W) from dy (B, C, H, W): the transposed stencil, summed over
-// (dr, dc, c) in that order from zero.  A warp owns a strip of DX_COLS
-// columns and DX_ROWS output rows of one image; each lane owns DX_PX
-// adjacent pixels.  The warp walks dy UP its rows (r from the strip's last
-// row + 1 to its first row − 1), one vector load per channel and lane
-// (16 bytes in float32, 8 in bfloat16), the two halo columns from the
-// neighbouring lanes by shuffle (the strip's edge lanes load theirs).  Row
-// r is the dr = 0 row of output r − 1, the dr = 1 row of output r and the
-// dr = 2 row of output r + 1, so walking upwards each output receives its
-// terms in the plain version's order; three accumulators a pixel (outputs
-// r + 1, r, r − 1) roll down as r does, and output r + 1 is stored when row
-// r is in.  dy rows are read once but for the two halo rows per strip; no
-// division, no shared tile.
-// A lane's DX_PX = 4 pixels of one dy row and its halo pixel, kept as the
-// raw 32-bit words they were loaded as (one aligned 16- or 8-byte vector
-// load where the group lies inside and ``vec``: W and the base multiples of
-// the vector; else element by element, zero past the edges), so that a
-// prefetched row costs no instruction until it is used.
-template <typename T>
+// A lane's P adjacent pixels of one row, kept as the raw 32-bit words they
+// were loaded as (aligned 16-byte vector loads, or one 8-byte load for 4
+// bfloat16 pixels, where the group lies inside and ``vec``: W and the base
+// multiples of the vector; else element by element, zero past the edges),
+// so that a prefetched row costs no instruction until it is used.
+template <typename T, int P>
 struct RawPx;
 
-template <>
-struct RawPx<float> {
-  static constexpr int WORDS = 4;
+template <int P>
+struct RawPx<float, P> {
+  static constexpr int WORDS = P;
   __device__ static void load(const float* row, int j0, int W, bool vec,
                               unsigned (&w)[WORDS]) {
-    if (vec && j0 + DX_PX <= W) {
-      const uint4 v = *reinterpret_cast<const uint4*>(row + j0);
-      w[0] = v.x;
-      w[1] = v.y;
-      w[2] = v.z;
-      w[3] = v.w;
+    if (vec && j0 + P <= W) {
+#pragma unroll
+      for (int i = 0; i < P / 4; ++i) {
+        const uint4 v = reinterpret_cast<const uint4*>(row + j0)[i];
+        w[4 * i] = v.x;
+        w[4 * i + 1] = v.y;
+        w[4 * i + 2] = v.z;
+        w[4 * i + 3] = v.w;
+      }
     } else {
 #pragma unroll
-      for (int q = 0; q < DX_PX; ++q)
+      for (int q = 0; q < P; ++q)
         w[q] = j0 + q < W ? __float_as_uint(row[j0 + q]) : 0u;
     }
   }
@@ -165,20 +152,32 @@ struct RawPx<float> {
   __device__ static float halo(unsigned h) { return __uint_as_float(h); }
 };
 
-template <>
-struct RawPx<__nv_bfloat16> {  // two pixels a word, the lower one low
-  static constexpr int WORDS = 2;
+template <int P>
+struct RawPx<__nv_bfloat16, P> {  // two pixels a word, the lower one low
+  static constexpr int WORDS = P / 2;
   __device__ static void load(const __nv_bfloat16* row, int j0, int W,
                               bool vec, unsigned (&w)[WORDS]) {
-    if (vec && j0 + DX_PX <= W) {
-      const uint2 v = *reinterpret_cast<const uint2*>(row + j0);
-      w[0] = v.x;
-      w[1] = v.y;
+    if (vec && j0 + P <= W) {
+      if constexpr (P == 4) {
+        const uint2 v = *reinterpret_cast<const uint2*>(row + j0);
+        w[0] = v.x;
+        w[1] = v.y;
+      } else {
+#pragma unroll
+        for (int i = 0; i < P / 8; ++i) {
+          const uint4 v = reinterpret_cast<const uint4*>(row + j0)[i];
+          w[4 * i] = v.x;
+          w[4 * i + 1] = v.y;
+          w[4 * i + 2] = v.z;
+          w[4 * i + 3] = v.w;
+        }
+      }
     } else {
       const unsigned short* s = reinterpret_cast<const unsigned short*>(row);
-      w[0] = w[1] = 0u;
 #pragma unroll
-      for (int q = 0; q < DX_PX; ++q)
+      for (int e = 0; e < WORDS; ++e) w[e] = 0u;
+#pragma unroll
+      for (int q = 0; q < P; ++q)
         if (j0 + q < W) w[q / 2] |= (unsigned)s[j0 + q] << (16 * (q % 2));
     }
   }
@@ -191,36 +190,188 @@ struct RawPx<__nv_bfloat16> {  // two pixels a word, the lower one low
   __device__ static float halo(unsigned h) { return __uint_as_float(h << 16); }
 };
 
-__device__ __forceinline__ void store_vec(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+// vector stores with the streaming hint (__stcs: evict first), since no
+// kernel here reads what it writes
+template <int P>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[P]) {
+#pragma unroll
+  for (int i = 0; i < P / 4; ++i)
+    __stcs(reinterpret_cast<float4*>(p) + i,
+           make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]));
 }
-__device__ __forceinline__ unsigned bf16_bits(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16(v));
-}
+template <int P>
 __device__ __forceinline__ void store_vec(__nv_bfloat16* p,
-                                          const float (&v)[4]) {
-  *reinterpret_cast<uint2*>(p) =
-      make_uint2(bf16_bits(v[0]) | bf16_bits(v[1]) << 16,
-                 bf16_bits(v[2]) | bf16_bits(v[3]) << 16);
+                                          const float (&v)[P]) {
+  if constexpr (P == 4) {
+    __stcs(reinterpret_cast<uint2*>(p),
+           make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3])));
+  } else {
+#pragma unroll
+    for (int i = 0; i < P / 8; ++i)
+      __stcs(reinterpret_cast<uint4*>(p) + i,
+             make_uint4(pack_bf16(v[8 * i], v[8 * i + 1]),
+                        pack_bf16(v[8 * i + 2], v[8 * i + 3]),
+                        pack_bf16(v[8 * i + 4], v[8 * i + 5]),
+                        pack_bf16(v[8 * i + 6], v[8 * i + 7])));
+  }
 }
 
-template <typename T>
+template <typename T, int P>
 __device__ __forceinline__ void store_px(T* row, int j0, int W, bool vec,
-                                         const float (&val)[DX_PX]) {
-  if (vec && j0 + DX_PX <= W) {
+                                         const float (&val)[P]) {
+  if (vec && j0 + P <= W) {
     store_vec(row + j0, val);
   } else {
 #pragma unroll
-    for (int q = 0; q < DX_PX; ++q)
+    for (int q = 0; q < P; ++q)
       if (j0 + q < W) store(row + j0 + q, val[q]);
   }
+}
+
+// ---- the forward and dW: a rolling window down the rows --------------------
+
+// A lane's place in strip s of 32·P columns: its first column j0, and the
+// halo column jh it loads itself if it is an edge lane (``edge``: lane 0
+// loads the strip's left neighbour, lane 31 its right one, where they lie
+// inside; the other lanes take theirs by shuffle).
+template <int P>
+struct StripLane {
+  int j0, jh;
+  bool edge;
+  __device__ StripLane(int s, int lane, int W)
+      : j0(s * 32 * P + lane * P), jh(lane == 0 ? j0 - 1 : j0 + P),
+        edge((lane == 0 || lane == 31) && jh >= 0 && jh < W) {}
+};
+
+// One x row of a lane: its P pixels' raw words and its halo pixel's.
+template <typename T, int P>
+struct XRow {
+  unsigned w[RawPx<T, P>::WORDS];
+  unsigned h;
+};
+
+// x row r of one image, zeros outside [0, H).
+template <typename T, int P>
+__device__ __forceinline__ void load_x(const T* xb, int r, int H, int W,
+                                       const StripLane<P>& at, bool vec,
+                                       XRow<T, P>& d) {
+  const bool in = r >= 0 && r < H;
+  const T* row = xb + (size_t)(in ? r : 0) * W;
+  if (in) {
+    RawPx<T, P>::load(row, at.j0, W, vec, d.w);
+  } else {
+#pragma unroll
+    for (int e = 0; e < RawPx<T, P>::WORDS; ++e) d.w[e] = 0u;
+  }
+  d.h = in && at.edge ? RawPx<T, P>::one(row, at.jh) : 0u;
+}
+
+// The row as P + 2 floats: v[1 + q] is pixel j0 + q, v[0] and v[P + 1] the
+// halo columns j0 − 1 and j0 + P.  All 32 lanes take part (the shuffles).
+template <typename T, int P>
+__device__ __forceinline__ void unpack_x(const XRow<T, P>& d, int lane,
+                                         float (&v)[P + 2]) {
+#pragma unroll
+  for (int q = 0; q < P; ++q) v[1 + q] = RawPx<T, P>::px(d.w, q);
+  const float left = __shfl_up_sync(FULL, v[P], 1);
+  const float right = __shfl_down_sync(FULL, v[1], 1);
+  const float own = RawPx<T, P>::halo(d.h);
+  v[0] = lane == 0 ? own : left;
+  v[P + 1] = lane == 31 ? own : right;
+}
+
+// window[0..2] = window[1..2], then the next row in window[2]
+template <typename T, int P>
+__device__ __forceinline__ void roll(float (&v)[3][P + 2],
+                                     const XRow<T, P>& next, int lane) {
+#pragma unroll
+  for (int q = 0; q < P + 2; ++q) {
+    v[0][q] = v[1][q];
+    v[1][q] = v[2][q];
+  }
+  unpack_x(next, lane, v[2]);
+}
+
+// The row strips of all images form one sequence, i = (s·B + b)·H + r
+// (strip s, image b, row r).  Warp w of the grid's n takes [w·N / n, (w +
+// 1)·N / n) of its N strips and walks them as runs of rows of one image and
+// strip: run(s, b, first row, end row).  Neighbouring warps walk
+// neighbouring rows, so the halo rows they both read are mostly L2 hits.
+template <typename F>
+__device__ __forceinline__ void walk_rows(long long N, int B, int H,
+                                          F&& run) {
+  const long long n = (long long)gridDim.x * WALK_WARPS;
+  const long long w = (long long)blockIdx.x * WALK_WARPS + threadIdx.x / 32;
+  long long i = w * N / n;
+  const long long end = (w + 1) * N / n;
+  while (i < end) {
+    const long long sb = i / H;
+    const int r = (int)(i - sb * H);
+    const int rows = (int)(end - i < H - r ? end - i : H - r);
+    run((int)(sb / B), (int)(sb % B), r, r + rows);
+    i += rows;
+  }
+}
+
+// y (B, C, H, W) from x (B, H, W).  At output row r a warp's window holds x
+// rows r − 1, r and r + 1 as floats while row r + 2 is in flight.  Each
+// channel's P outputs are summed as the plain version sums them, each
+// product and then each running sum rounded (no fused multiply-add), in
+// tap order k = dr·3 + dc, and stored as one vector.  The weights are read
+// from shared memory as broadcasts, one a tap and channel for P products,
+// so the kernel fits FWD_BLOCKS blocks an SM.
+template <typename TI, typename TO>
+__global__ void __launch_bounds__(WALK_THREADS, FWD_BLOCKS)
+fwd_kernel(const TI* __restrict__ x, const float* __restrict__ w,
+           TO* __restrict__ y, int B, int H, int W, int vec_in,
+           int vec_out) {
+  constexpr int P = VEC_PX<TO>;
+  __shared__ float ws[C * K];                 // w[c, dr, dc] at [c·K + k]
+  if (threadIdx.x < C * K) ws[threadIdx.x] = w[threadIdx.x];
+  __syncthreads();
+  const int lane = threadIdx.x % 32;
+  const size_t plane = (size_t)H * W;
+  walk_rows((long long)strips<P>(W) * B * H, B, H,
+            [&](int s, int b, int ra, int rb) {
+    const StripLane<P> at(s, lane, W);
+    const TI* xb = x + (size_t)b * plane;
+    TO* yb = y + (size_t)b * C * plane;
+    XRow<TI, P> above, mid, next;
+    load_x(xb, ra - 1, H, W, at, vec_in, above);
+    load_x(xb, ra, H, W, at, vec_in, mid);
+    load_x(xb, ra + 1, H, W, at, vec_in, next);
+    float v[3][P + 2];                       // x rows r − 1, r, r + 1
+    unpack_x(above, lane, v[0]);
+    unpack_x(mid, lane, v[1]);
+    unpack_x(next, lane, v[2]);
+    for (int r = ra; r < rb; ++r) {
+      if (r + 1 < rb) load_x(xb, r + 2, H, W, at, vec_in, next);
+      TO* yr = yb + (size_t)r * W;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        float o[P];
+        const float w0 = ws[c * K];
+#pragma unroll
+        for (int q = 0; q < P; ++q) o[q] = __fmul_rn(v[0][q], w0);
+#pragma unroll
+        for (int k = 1; k < K; ++k) {
+          const float wk = ws[c * K + k];
+#pragma unroll
+          for (int q = 0; q < P; ++q)
+            o[q] = __fadd_rn(o[q], __fmul_rn(v[k / 3][q + k % 3], wk));
+        }
+        store_px(yr + c * plane, at.j0, W, vec_out, o);
+      }
+      if (r + 1 < rb) roll(v, next, lane);
+    }
+  });
 }
 
 template <typename TG, typename TO>
 __global__ void __launch_bounds__(DX_THREADS)
 dx_kernel(const TG* __restrict__ dy, const float* __restrict__ w,
           TO* __restrict__ dx, int H, int W, int vec_in, int vec_out) {
-  using Raw = RawPx<TG>;
+  using Raw = RawPx<TG, DX_PX>;
   __shared__ __align__(16) float ws[K][C];     // w[c, dr, dc] at [dr·3+dc][c]
   const int tid = threadIdx.x, lane = tid % 32;
   if (tid < C * K) ws[tid % K][tid / K] = w[tid];
@@ -306,52 +457,109 @@ dx_kernel(const TG* __restrict__ dy, const float* __restrict__ w,
   }
 }
 
-// dW, pass 1: block (TW, TY) threads owns DW_TH x TW pixels of one image;
-// each thread adds its pixels' 72 products in registers (the 9 shifted x
-// values through the cache, 8 dy values of one column), then the block adds
-// its threads' sums through shared memory in a fixed order and writes one
-// partial row of C·K floats, [c·K + k], to part[block].
+// Lanes l and l ^ M trade the halves of their first N sums that the other
+// keeps, and add: lane l keeps the upper half where bit M of l is set.
+template <int N, int M>
+__device__ __forceinline__ void halve(float (&a)[C * K], int lane) {
+  const bool upper = lane & M;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const float give = upper ? a[i] : a[i + N / 2];
+    const float keep = upper ? a[i + N / 2] : a[i];
+    a[i] = keep + __shfl_xor_sync(FULL, give, M);
+  }
+}
+
+// A warp's C·K sums over its 32 lanes, in a fixed order: three halvings
+// (lanes 16, 8 and 4 apart) leave lane l with channel l / 4's K sums over
+// the 8 lanes l ^ {0, 4, .., 28}, then two butterflies add the quad's.
+// a[0..K) of lane l is then channel l / 4's total, the same bits in the
+// four lanes of the quad (a + b = b + a).  81 shuffles, not 5 · 72.
+__device__ __forceinline__ void warp_sum(float (&a)[C * K], int lane) {
+  halve<C * K, 16>(a, lane);
+  halve<C * K / 2, 8>(a, lane);
+  halve<C * K / 4, 4>(a, lane);
+#pragma unroll
+  for (int m = 2; m >= 1; m /= 2)
+#pragma unroll
+    for (int k = 0; k < K; ++k) a[k] += __shfl_xor_sync(FULL, a[k], m);
+}
+
+// dW, pass 1: each warp walks its share of the row strips as the forward
+// does, and at row r adds the products of its window with dy row r (C
+// channels, one P-pixel vector each, in flight a row ahead with x row r +
+// 2) into C·K accumulators [c·K + k] by FMA.  Then warp_sum, the block's
+// warps added in warp order through shared memory, and one partial row of
+// C·K floats to part[block].
 template <typename TI, typename TG>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(WALK_THREADS)
 dw_kernel(const TI* __restrict__ x, const TG* __restrict__ dy,
-          float* __restrict__ part, int H, int W) {
-  extern __shared__ __align__(16) float red[];   // [C·K][RED_STRIDE]
-  const int b = blockIdx.z, r0 = blockIdx.y * DW_TH, s = blockIdx.x * TW
-                                                         + threadIdx.x;
-  const int tid = threadIdx.y * TW + threadIdx.x;
+          float* __restrict__ part, int B, int H, int W, int vec_x,
+          int vec_g) {
+  constexpr int P = VEC_PX<TG>;
+  using G = RawPx<TG, P>;
+  __shared__ float red[WALK_WARPS][C * K];
+  const int lane = threadIdx.x % 32;
   const size_t plane = (size_t)H * W;
-  const TI* xb = x + (size_t)b * plane;
-  const TG* gb = dy + (size_t)b * C * plane;
   float acc[C * K];
 #pragma unroll
   for (int j = 0; j < C * K; ++j) acc[j] = 0.f;
-  for (int rr = threadIdx.y; rr < DW_TH; rr += TY) {
-    const int r = r0 + rr;
-    if (r >= H || s >= W) continue;
-    float v[K], g[C];
+  walk_rows((long long)strips<P>(W) * B * H, B, H,
+            [&](int s, int b, int ra, int rb) {
+    const StripLane<P> at(s, lane, W);
+    const TI* xb = x + (size_t)b * plane;
+    const TG* gb = dy + (size_t)b * C * plane;
+    auto load_g = [&](int r, unsigned (&dst)[C][G::WORDS]) {
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int rx = r + k / 3 - 1, sx = s + k % 3 - 1;
-      v[k] = (rx >= 0 && rx < H && sx >= 0 && sx < W)
-                 ? to_f(xb[(size_t)rx * W + sx]) : 0.f;
+      for (int c = 0; c < C; ++c)
+        G::load(gb + c * plane + (size_t)r * W, at.j0, W, vec_g, dst[c]);
+    };
+    XRow<TI, P> above, mid, next;
+    unsigned g[C][G::WORDS], g_next[C][G::WORDS];   // dy rows r, r + 1
+    load_x(xb, ra - 1, H, W, at, vec_x, above);
+    load_x(xb, ra, H, W, at, vec_x, mid);
+    load_x(xb, ra + 1, H, W, at, vec_x, next);
+    load_g(ra, g);
+    float v[3][P + 2];                       // x rows r − 1, r, r + 1
+    unpack_x(above, lane, v[0]);
+    unpack_x(mid, lane, v[1]);
+    unpack_x(next, lane, v[2]);
+    for (int r = ra; r < rb; ++r) {
+      if (r + 1 < rb) {
+        load_x(xb, r + 2, H, W, at, vec_x, next);
+        load_g(r + 1, g_next);
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        float d[P];
+#pragma unroll
+        for (int q = 0; q < P; ++q) d[q] = G::px(g[c], q);
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+#pragma unroll
+          for (int q = 0; q < P; ++q)
+            acc[c * K + k] = fmaf(v[k / 3][q + k % 3], d[q], acc[c * K + k]);
+      }
+      if (r + 1 < rb) {
+        roll(v, next, lane);
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+#pragma unroll
+          for (int e = 0; e < G::WORDS; ++e) g[c][e] = g_next[c][e];
+      }
     }
+  });
+  warp_sum(acc, lane);
+  const int warp = threadIdx.x / 32;
+  if (lane % 4 == 0)
 #pragma unroll
-    for (int c = 0; c < C; ++c) g[c] = to_f(gb[c * plane + (size_t)r * W + s]);
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-#pragma unroll
-      for (int k = 0; k < K; ++k)
-        acc[c * K + k] = fmaf(v[k], g[c], acc[c * K + k]);
-  }
-#pragma unroll
-  for (int j = 0; j < C * K; ++j) red[j * RED_STRIDE + tid] = acc[j];
+    for (int k = 0; k < K; ++k) red[warp][K * (lane / 4) + k] = acc[k];
   __syncthreads();
-  if (tid < C * K) {
-    float sum = 0.f;
-    for (int t = 0; t < THREADS; ++t) sum += red[tid * RED_STRIDE + t];
-    const size_t blk = ((size_t)blockIdx.z * gridDim.y + blockIdx.y)
-                       * gridDim.x + blockIdx.x;
-    part[blk * (C * K) + tid] = sum;
+  if (threadIdx.x < C * K) {
+    float sum = red[0][threadIdx.x];
+#pragma unroll
+    for (int i = 1; i < WALK_WARPS; ++i) sum += red[i][threadIdx.x];
+    part[(size_t)blockIdx.x * (C * K) + threadIdx.x] = sum;
   }
 }
 
@@ -378,15 +586,53 @@ inline bool shape_ok(int B, int H, int W, int Cout) {
          && (long long)B * C * H * W < (1LL << 31);
 }
 
-inline dim3 tiles(int B, int H, int W, int rows) {
-  return dim3((W + TW - 1) / TW, (H + rows - 1) / rows, B);
+// whether a row of T at base p can move as P-pixel vectors: W a multiple
+// of P and p aligned to the vector (16 bytes; 8 for 4 bfloat16 pixels)
+template <typename T, int P>
+int vec_ok(const void* p, int W) {
+  constexpr size_t bytes = P * sizeof(T) < 16 ? P * sizeof(T) : 16;
+  return W % P == 0 && (size_t)p % bytes == 0;
+}
+
+// blocks for ``strips`` row strips: ``most``, or fewer where a warp would
+// get fewer than MIN_ROWS
+inline int walk_blocks(long long strips, int most) {
+  const long long want = (strips + WALK_WARPS * MIN_ROWS - 1)
+                         / (WALK_WARPS * MIN_ROWS);
+  return (int)(want < most ? want : most);
+}
+
+// the blocks of one wave of ``kernel`` on the current card: its SMs times
+// the WALK_THREADS blocks an SM holds; 0 (a launch that fails) if the
+// runtime cannot say
+template <typename Kern>
+int wave_blocks(Kern kernel) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess
+      || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
+             != cudaSuccess
+      || cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                       WALK_THREADS, 0)
+             != cudaSuccess)
+    return 0;
+  return sms * per_sm;
+}
+
+// dW's blocks: DW_GRID, fewer on small shapes; counted in 128-column
+// strips, so that the count needs no dtype
+inline int dw_blocks(int B, int H, int W) {
+  return walk_blocks((long long)strips<4>(W) * B * H, DW_GRID);
 }
 
 template <typename A, typename Bt>
 cudaError_t launch_fwd(const void* x, const void* w, void* y, int B, int H,
                        int W, cudaStream_t st) {
-  fwd_kernel<A, Bt><<<tiles(B, H, W, TH), dim3(TW, TY), 0, st>>>(
-      (const A*)x, (const float*)w, (Bt*)y, H, W);
+  constexpr int P = VEC_PX<Bt>;
+  static const int wave = wave_blocks(fwd_kernel<A, Bt>);
+  const int grid = walk_blocks((long long)strips<P>(W) * B * H, wave);
+  fwd_kernel<A, Bt><<<grid, WALK_THREADS, 0, st>>>(
+      (const A*)x, (const float*)w, (Bt*)y, B, H, W, vec_ok<A, P>(x, W),
+      vec_ok<Bt, P>(y, W));
   return cudaGetLastError();
 }
 
@@ -407,18 +653,15 @@ cudaError_t launch_dx(const void* dy, const void* w, void* dx, int B, int H,
 template <typename A, typename Bt>
 cudaError_t launch_dw(const void* x, const void* dy, void* part, void* dw,
                       int B, int H, int W, cudaStream_t st) {
-  const size_t smem = sizeof(float) * C * K * RED_STRIDE;
-  cudaError_t err = cudaFuncSetAttribute(
-      dw_kernel<A, Bt>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid = tiles(B, H, W, DW_TH);
-  dw_kernel<A, Bt><<<grid, dim3(TW, TY), smem, st>>>(
-      (const A*)x, (const Bt*)dy, (float*)part, H, W);
-  err = cudaGetLastError();
+  constexpr int P = VEC_PX<Bt>;
+  const int grid = dw_blocks(B, H, W);
+  dw_kernel<A, Bt><<<grid, WALK_THREADS, 0, st>>>(
+      (const A*)x, (const Bt*)dy, (float*)part, B, H, W, vec_ok<A, P>(x, W),
+      vec_ok<Bt, P>(dy, W));
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dw_reduce_kernel<<<C * K, RED_THREADS, 0, st>>>(
-      (const float*)part, (float*)dw, (int)(grid.x * grid.y * grid.z));
+      (const float*)part, (float*)dw, grid);
   return cudaGetLastError();
 }
 
@@ -450,8 +693,7 @@ extern "C" int mimm_shallow_conv_fwd(const void* x, const void* w, void* y,
 // The number of partial rows the dW entry point needs in ``part`` (each of
 // C·K floats).
 extern "C" int mimm_shallow_conv_dw_blocks(int B, int H, int W) {
-  const dim3 grid = tiles(B, H, W, DW_TH);
-  return (int)(grid.x * grid.y * grid.z);
+  return dw_blocks(B, H, W);
 }
 
 // x (B, H, W) of x_dt; dy (B, C, H, W) of dy_dt; part: scratch of

@@ -22,7 +22,8 @@
 // all of them.  cp.async, cp.async.bulk and the TMA load are synchronous
 // copies; cp.async's waits, wgmma's fence and waits and the proxy fence
 // do nothing (wgmma computes when issued).  Exited threads leave
-// the barriers they would have met, as on the card.  Compiled with g++
+// the barriers they would have met, as on the card.  The occupancy queries
+// answer for a card of 2 SMs holding 2 blocks each.  Compiled with g++
 // -std=c++20 after the test rewrites `kernel<<<...>>>(args)` into
 // emu_launch(kernel, ..., args) and `extern __shared__ ... name[];` into a
 // pointer to that buffer.
@@ -230,6 +231,10 @@ inline float __expf(float x) { return std::exp(x); }
 template <typename T>
 T __ldg(const T* p) {
   return *p;
+}
+template <typename T>
+void __stcs(T* p, T v) {  // the streaming hint is the card's business
+  *p = v;
 }
 
 #define __global__
@@ -647,6 +652,24 @@ cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+
+// The stand-in's card: 2 SMs that hold 2 blocks of any kernel each, so a
+// grid sized to one wave of the card has 4 blocks.
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
+  *value = 2;
+  return cudaSuccess;
+}
+template <typename K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, K, int,
+                                                          size_t) {
+  *blocks = 2;
+  return cudaSuccess;
+}
 
 template <typename K, typename... A>
 void emu_launch(K kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t,

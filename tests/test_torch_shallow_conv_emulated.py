@@ -7,15 +7,21 @@ called through the port's own kernel wrappers (``fwd_kernel``,
 ``dw_kernel``, ``dx_kernel``) on CPU tensors.  Their outputs are held
 against the plain versions on the same inputs.
 
-This checks the kernels' indexing, the tiles' borders (shapes whose H and
-W are no multiples of the 16 x 64 tiles), dx's rolling row window, its
-vector loads and its shuffled halo columns (widths with no full 4-pixel
-vector, ragged 128-column strips, heights below its 16-row walk), the fixed-order sums of dW, and the dtype pairs the entry points
-dispatch, without a card; the card's compiler and every time come only
-from chip_smoke.py.  The forward and dx round each product and each
-running sum as the plain versions do, in their order, so they must agree
-to the bit in float32 and in bfloat16; dW sums in another order: max |Δ|
-over max |plain| ≤ 1e-5.
+This checks, without a card, the kernels' rolling row windows: the forward
+and dW walk down equal shares of the row strips of all images (runs that
+cross strips and images), dx up its 16-row strips; their vector loads and
+stores (16 bytes of y or dy a lane: 8 pixels in bfloat16, 4 in float32;
+dx 4) and the shuffled halo columns, at widths around those vectors and
+their 32-lane strips (W = 1, 7, 9: no multiple of the 8-pixel vector; 4,
+6 around the 4-pixel one; 8; 131, 257: a ragged last strip, no vector
+path) and heights 1 and 3; dW's fixed grid of blocks (a shape whose row
+strips fill it and split unevenly over its warps), its shuffle tree and
+its fixed-order sums (two calls give the same bits); all four dtype pairs
+of each entry point.
+The card's compiler and every time come only from chip_smoke.py.  The
+forward and dx round each product and each running sum as the plain
+versions do, in their order, so they must agree to the bit in float32 and
+in bfloat16; dW sums in another order: max |Δ| over max |plain| ≤ 1e-5.
 
 The port side runs in a jax-free child (tests/torch_port_child.py); without
 g++ the test skips.
@@ -29,12 +35,24 @@ import sys
 import numpy as np
 import pytest
 
-# (B, H, W, x / y dtype, dy / dx dtype)
+# (B, H, W, x / dx dtype, y / dy dtype)
 CASES = {"tile": (2, 16, 64, "float32", "float32"),
          "ragged": (2, 17, 23, "float32", "float32"),
          "ragged_wide": (1, 40, 130, "float32", "float32"),
          "ragged_bf16": (2, 17, 23, "bfloat16", "bfloat16"),
-         "mixed": (1, 33, 70, "float32", "bfloat16")}
+         "mixed": (1, 33, 70, "float32", "bfloat16"),
+         "mixed_bf16_f32": (1, 33, 70, "bfloat16", "float32"),
+         # 6600 (float32) / 4400 (bfloat16) row strips: dW's whole fixed
+         # grid of 264 blocks, 6.25 / 4.17 strips a warp
+         "grid_remainder": (2, 1100, 260, "float32", "float32"),
+         "grid_remainder_bf16": (2, 1100, 260, "bfloat16", "bfloat16")}
+DTYPE_PAIRS = [(a, b) for a in ("float32", "bfloat16")
+               for b in ("float32", "bfloat16")]
+# the forward's and dW's vector widths: W around 8 pixels (1, 7, 8, 9) and
+# 4 (4, 6), ragged 256- and 128-column strips (131, 257); H below any walk
+CASES.update({f"w{w}_h{h}_{a}_{b}": (2, h, w, a, b)
+              for w in (1, 4, 6, 7, 8, 9, 131, 257) for h in (1, 3)
+              for a, b in DTYPE_PAIRS})
 DW_TOL = 1e-5
 # dx alone at widths around its 4-pixel vectors and 128-column strips (W =
 # 1, 7: no full vector; 131, 257: a ragged last strip, no vector loads) and
@@ -59,6 +77,7 @@ def test_emulated_kernels_match_plain(results, case):
     got = results["cases"][case]
     assert got["fwd_equal"] is True and got["dx_equal"] is True, got
     assert got["dw_err"] <= DW_TOL, got
+    assert got["dw_same_bits"] is True, got
 
 
 @pytest.mark.parametrize("dtype", DX_DTYPES)
@@ -72,7 +91,9 @@ def test_emulated_dx_bit_equal_at_ragged_widths(results, shape, dtype):
 def test_emulated_kernels_launch_once_per_call(results):
     if "skip" in results:
         pytest.skip(results["skip"])
-    assert results["launches"] == {n: len(CASES) for n in results["kernels"]}
+    assert results["launches"] == {    # dW twice a case: the same bits
+        "shallow_conv_fwd": len(CASES), "shallow_conv_dw": 2 * len(CASES),
+        "shallow_conv_dx": len(CASES)}
     assert results["dx_sweep_launches"] == {
         "shallow_conv_dx": len(DX_SHAPES) * len(DX_DTYPES)}
 
@@ -111,18 +132,21 @@ def _child(job):
         for case, (b, h, w, xt, gt) in CASES.items():
             gen = torch.Generator().manual_seed(h * w)
             xdt, gdt = getattr(torch, xt), getattr(torch, gt)
-            x = torch.rand(b, h, w, 1, generator=gen).to(xdt)
+            # (B, 1, H, W), the same memory as the (B, H, W, 1) image: the
+            # wrappers read a (B, 1, W, 1) image as (B, W, 1)
+            x = torch.rand(b, 1, h, w, generator=gen).to(xdt)
             weight = torch.randn(8, 1, 3, 3, generator=gen) * 0.5
             dy = torch.randn(b, 8, h, w, generator=gen).to(gdt)
             dw, want_dw = sc.dw_kernel(x, dy), sc.dw_plain(x, dy)
             meta["cases"][case] = {
-                "fwd_equal": torch.equal(sc.fwd_kernel(x, weight, xdt),
-                                         sc.fwd_plain(x, weight, xdt)),
+                "fwd_equal": torch.equal(sc.fwd_kernel(x, weight, gdt),
+                                         sc.fwd_plain(x, weight, gdt)),
                 "dx_equal": torch.equal(sc.dx_kernel(dy, weight, xdt),
                                         sc.dx_plain(dy, weight, xdt)),
                 "dw_err": ((dw - want_dw).abs().max()
                            / want_dw.abs().max()).item()
-                if dw.shape == want_dw.shape else float("inf")}
+                if dw.shape == want_dw.shape else float("inf"),
+                "dw_same_bits": torch.equal(sc.dw_kernel(x, dy), dw)}
         meta["launches"] = dict(sc.LAUNCHES)
         meta["kernels"] = list(sc.KERNELS.values())
         x, w4 = torch.zeros(2, 8, 8, 1), torch.zeros(4, 1, 3, 3)
