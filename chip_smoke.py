@@ -106,7 +106,22 @@ no arguments.  Phases:
    memory, one forward and one dW launch a step, a finite epoch loss, a
    strict reload of the written ``.bin`` files, and the device's busy time
    over the same run again under torch.profiler;
-12. the ``kernels`` JSON line, the card line, and as the last line
+12. MI pretraining from disk through its entry point,
+   ``mimm_tpu_torch.cli.multi_modal.train_mutual_information``, at full
+   width (production preset with ``pallas_stem``, B=64, 2 epochs,
+   ``keep_checkpoints`` 1, 4 loader threads) over a corpus written here
+   from numpy: 1024 pairs whose report lengths follow the bucket mix and
+   64 more in each of the 256 and 320 buckets, reports of words of a
+   BERT-base-sized vocabulary (tokenized by the port's tokenizer and
+   ``load_and_cache_examples``), and one crop-cache entry per image with a
+   full-resolution CXR's geometry (no image file: every read must be a
+   hit).  Run A trains uninterrupted; run B gets a real SIGTERM after step
+   5 of epoch 1 and checkpoints; run C resumes it (``resume_from`` "auto")
+   and must end at A's step count on A's bits (cuDNN deterministic).  The
+   epoch's split between the loader threads' reads, the pinned copies, the
+   steps and the saves, the pairs/s of A's epochs, the hits, the pruned
+   checkpoints and a strict reload of the ``.bin`` files;
+13. the ``kernels`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a card it exits before
@@ -1822,9 +1837,10 @@ def compare_step(device, bert_kw, batch: int, seq: int,
     return out
 
 
-def check_reload(save: str, state, bert_config) -> None:
-    """The three .bin files load into fresh port modules with strict=True
-    and hold the state's weights and statistics."""
+def check_reload(save: str, state, bert_config, epoch: int = 1) -> None:
+    """The three .bin files (the joint one of ``epoch``) load into fresh
+    port modules with strict=True and hold the state's weights and
+    statistics."""
     want = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
     image = ResNet256_6_2_1()
     image.load_state_dict(ckpt.load_state_dict_bin(
@@ -1835,7 +1851,7 @@ def check_reload(save: str, state, bert_config) -> None:
         os.path.join(save, "pytorch_MI_text_model.bin")), strict=True)
     joint = ImageReportModel(bert_config)
     joint.load_state_dict(ckpt.load_state_dict_bin(
-        os.path.join(save, "pytorch_model_epoch1.bin")), strict=True)
+        os.path.join(save, f"pytorch_model_epoch{epoch}.bin")), strict=True)
     got = dict(joint.state_dict())
     got.update({f"image_model.{k}": v for k, v in image.state_dict().items()})
     got.update({f"text_model.{k}": v for k, v in text.state_dict().items()})
@@ -2721,6 +2737,509 @@ def drive_manager(root: str, device, bert_kw=TRAIN_BERT, pairs=MANAGER_PAIRS,
             "loss": loss, "save_seconds": save_s}
 
 
+# ---- phase 12: MI pretraining from disk through its entry point ------------
+
+CLI_PAIRS = 1024
+CLI_LONG = 64          # more pairs in each of the 256 and 320 buckets
+CLI_EPOCHS = 2
+CLI_STOP_STEP = 5      # run B's SIGTERM: inside epoch 1, not a multiple of 8
+CLI_WINDOWS = 64       # distinct cache windows, hard-linked over the entries
+# a full-resolution MIMIC-CXR (mimm_tpu/data/transforms.py:8)
+CXR_SHAPE = (2544, 3056)
+SPECIAL_TOKENS = ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")
+
+
+def write_cli_corpus(root: str, pairs: int, long: int, vocab_size: int,
+                     img_size: int, seed: int) -> dict:
+    """The files ``train_mutual_information`` reads, from numpy (no image
+    codec): ``bert/vocab.txt`` of ``vocab_size`` tokens, ``text/
+    all_data.tsv`` in the reference's layout (index, label, study, image,
+    report), ``metadata.csv`` (``mimic_id``) and one crop-cache entry
+    ``<img_id>.w<img_size>.npz`` per image, a uint8 window as
+    ``support_window`` cuts it from a CXR_SHAPE image.  ``pairs`` report
+    lengths (in tokens, [CLS] and [SEP] included) follow BUCKET_MIX over
+    PRODUCTION_SEQ_BUCKETS, uniform within a bucket; ``long`` more fall in
+    each of the two longest buckets.  Each report word is one token."""
+    from mimm_tpu_torch.data import crop_cache
+
+    rng = np.random.default_rng(seed)
+    paths = {k: os.path.join(root, k)
+             for k in ("bert", "text", "cache", "images")}
+    for p in paths.values():
+        os.makedirs(p, exist_ok=True)
+    vocab = [*SPECIAL_TOKENS,
+             *(f"w{i:05d}" for i in range(vocab_size - len(SPECIAL_TOKENS)))]
+    with open(os.path.join(paths["bert"], "vocab.txt"), "w") as f:
+        f.write("\n".join(vocab) + "\n")
+    bounds = (0, *PRODUCTION_SEQ_BUCKETS)
+    share = np.array([BUCKET_MIX[b] for b in PRODUCTION_SEQ_BUCKETS])
+    bucket = np.concatenate([
+        rng.choice(len(share), size=pairs, p=share / share.sum()),
+        np.full(long, len(share) - 2), np.full(long, len(share) - 1)])
+    lengths = [int(rng.integers(max(3, bounds[b] + 1), bounds[b + 1] + 1))
+               for b in bucket]
+    h, w = CXR_SHAPE
+    oy, ox, wh, ww = crop_cache.support_window(h, w, img_size)
+    pool = []
+    for k in range(CLI_WINDOWS):
+        path = os.path.join(root, f"window{k}.npz")
+        crop_cache.write(path, rng.integers(0, 256, (wh, ww), dtype=np.uint8),
+                         (oy, ox, h, w))
+        pool.append(path)
+    rows, reports = [], []
+    for i, length in enumerate(lengths):
+        study = 50000000 + i
+        img_id = f"p{10000000 + i}_s{study}_{i:08x}.jpg"
+        entry = os.path.join(paths["cache"], f"{img_id}.w{img_size}.npz")
+        try:
+            os.link(pool[i % CLI_WINDOWS], entry)
+        except OSError:
+            shutil.copyfile(pool[i % CLI_WINDOWS], entry)
+        words = rng.integers(len(SPECIAL_TOKENS), vocab_size, length - 2)
+        reports.append(f"{i}\t-1\t{study}\t{img_id}\t"
+                       + " ".join(vocab[j] for j in words))
+        rows.append(img_id)
+    with open(os.path.join(paths["text"], "all_data.tsv"), "w") as f:
+        f.write("\n".join(reports) + "\n")
+    paths["metadata"] = os.path.join(root, "metadata.csv")
+    with open(paths["metadata"], "w") as f:
+        f.write("mimic_id\n" + "".join(f"{r}\n" for r in rows))
+    return paths
+
+
+class _RunProbe:
+    """What one ``train_mutual_information`` call does, read from outside:
+    each step's host seconds, text length and loss (kept on the device
+    until the end); the thread-seconds of the dataset's reads; the seconds
+    of the pinned copies and of the checkpoint saves; the crop cache the
+    Manager built; after each step a copy of the text tower's token-type
+    embedding table, the tensor any gradient difference anywhere in the
+    text tower reaches (its row 0 sums every position's gradient), to find
+    the first step where two runs part.  ``stop_at``: after that step, a
+    real SIGTERM to this process (the entry point's preemption handler
+    takes it).  Installs its wrappers while it is entered."""
+
+    def __init__(self):
+        from mimm_tpu_torch.data import crop_cache, pipeline
+        self._mods = crop_cache, pipeline
+        self.stop_at = None
+        self.reset()
+
+    def reset(self):
+        self.steps, self.lengths, self.losses, self.marks = [], [], [], []
+        self.load_s, self.copy_s, self.save_s, self.envelope_s = \
+            0.0, 0.0, 0.0, 0.0
+        self.caches = []
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        import signal
+
+        crop_cache, pipeline = self._mods
+        self._real = (mi.make_mi_step_body, pipeline.CXRImageReportDataset.load,
+                      pipeline._to_device, mi.save_mi_checkpoints,
+                      ckpt.save_checkpoint, crop_cache.from_config)
+        body_of, load, to_device, save, envelope, from_config = self._real
+        probe = self
+
+        def timed(fn, field):
+            def call(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    setattr(probe, field, getattr(probe, field)
+                            + time.perf_counter() - t0)
+            return call
+
+        def make_body(*a, **kw):
+            body = body_of(*a, **kw)
+
+            def step(state, batch):
+                t0 = time.perf_counter()
+                state, loss = body(state, batch)
+                probe.steps.append(time.perf_counter() - t0)
+                probe.lengths.append(int(batch["txt_ids"].shape[-1]))
+                probe.losses.append(loss)
+                probe.marks.append(state.model.text_model.bert.embeddings
+                                   .token_type_embeddings.weight.detach()
+                                   .clone())
+                if state.step == probe.stop_at:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                return state, loss
+            return step
+
+        def timed_load(ds, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return load(ds, *a, **kw)
+            finally:
+                with probe._lock:
+                    probe.load_s += time.perf_counter() - t0
+
+        def keep_cache(cfg):
+            cache = from_config(cfg)
+            probe.caches.append(cache)
+            return cache
+
+        mi.make_mi_step_body = make_body
+        pipeline.CXRImageReportDataset.load = timed_load
+        pipeline._to_device = timed(to_device, "copy_s")
+        mi.save_mi_checkpoints = timed(save, "save_s")
+        ckpt.save_checkpoint = timed(envelope, "envelope_s")
+        crop_cache.from_config = keep_cache
+        return self
+
+    def __exit__(self, *exc):
+        crop_cache, pipeline = self._mods
+        (mi.make_mi_step_body, pipeline.CXRImageReportDataset.load,
+         pipeline._to_device, mi.save_mi_checkpoints, ckpt.save_checkpoint,
+         crop_cache.from_config) = self._real
+
+    def hits(self):
+        return (sum(c.hits for c in self.caches),
+                sum(c.misses for c in self.caches))
+
+
+def _flat_tree(state) -> dict:
+    """The resume checkpoint's tree of ``state`` as {path: value}, on the
+    CPU: every parameter, buffer, critic tensor, moment and count."""
+    out = {}
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(f"{prefix}/{k}", v)
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(f"{prefix}/{i}", v)
+        else:
+            out[prefix] = node.detach().cpu().clone() \
+                if torch.is_tensor(node) else node
+    walk("", mi.mi_state_tree(state))
+    return out
+
+
+def embedding_repeat(device, batch=BATCH, seq=SEQ, width=768,
+                     dtype=torch.float32, deterministic=False) -> float:
+    """The largest |difference| between two backward calls of
+    ``F.embedding`` on the same inputs at the token-type lookup's shape in a
+    step (every index 0: one row gathers B·L gradients); float32 shows a
+    change of summation order that bf16 rounds away unless a sum lies near
+    a rounding boundary.  ``deterministic``: under
+    torch.use_deterministic_algorithms."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 29)
+    ids = torch.zeros(batch, seq, dtype=torch.long, device=device)
+    weight = torch.randn(2, width, generator=gen, device=device)
+    dy = torch.randn(batch, seq, width, generator=gen, device=device) \
+        .to(dtype)
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    try:
+        grads = []
+        for _ in range(2):
+            w = weight.to(dtype).requires_grad_()
+            (g,) = torch.autograd.grad(F.embedding(ids, w), (w,), dy)
+            grads.append(g)
+    finally:
+        torch.use_deterministic_algorithms(before)
+    return (grads[0].float() - grads[1].float()).abs().max().item()
+
+
+def corpus_batches(cfg, count: int, device) -> list:
+    """The first ``count`` batches of epoch 0 as the Manager's loader
+    composes them from ``cfg``'s corpus (its token cache and crop cache), on
+    ``device``."""
+    from mimm_tpu_torch.data import crop_cache, pipeline
+    from mimm_tpu_torch.data.features import TokenFeatureSet
+
+    tokens = TokenFeatureSet.load(os.path.join(
+        cfg.text_data_dir,
+        f"cachedfeatures_train_seqlen-{cfg.max_seq_length}.npz"))
+    data = pipeline.CXRImageReportDataset(
+        tokens, cfg.image_dir, cfg.dataset_metadata, img_size=cfg.img_size,
+        compact=cfg.compact_transfer, crop_cache=crop_cache.from_config(cfg))
+    loader = pipeline.Loader(data, cfg.batch_size, seed=cfg.seed,
+                             bucket_lengths=cfg.seq_buckets)
+    out = []
+    for b in loader.epoch(0):
+        out.append(pipeline._to_device(b, torch.device(device)))
+        if len(out) == count:
+            return out
+    return out
+
+
+def step_repeat(device, cfg, batches) -> None:
+    """Train steps on ``batches`` from one state, twice (the state restored
+    through the resume envelope): whether the gradient reaching each of
+    BERT's three embedding lookups (word, position, token type) is the same
+    in both, which tensors of the state differ at the end, and whether the
+    token-type lookup's backward alone gives the same bits twice on the
+    captured gradient."""
+    model = mi.build_joint_model(cfg, mi.load_bert_config(cfg), device=device)
+    txs = mi.make_optimizers(cfg, 15)
+    state = mi.create_mi_state(model, cfg, txs,
+                               torch.Generator().manual_seed(SEED))
+    path = ckpt.save_checkpoint(os.path.join(cfg.save_directory, "s.ckpt"),
+                                mi.mi_state_tree(state))
+    step = mi.make_mi_train_step(model, txs, cfg)
+    seen = []
+
+    class CapturingF:
+        """torch.nn.functional, with each embedding output's gradient
+        kept."""
+
+        def __getattr__(self, name):
+            return getattr(F, name)
+
+        @staticmethod
+        def embedding(ids, weight):
+            out = F.embedding(ids, weight)
+            if out.requires_grad:
+                seen.append((ids, weight.detach()))
+                slot = len(seen) - 1
+                out.register_hook(lambda g: grads.__setitem__(slot, g))
+            return out
+
+    runs = []
+    real_f = bert_model.F
+    bert_model.F = CapturingF()
+    try:
+        for _ in range(2):
+            seen.clear()
+            grads = {}
+            state = mi.restore_mi_state(model, cfg, txs,
+                                        ckpt.load_checkpoint(path))
+            for b in batches:
+                state, _ = step(state, b)
+            _sync(device)
+            runs.append((dict(grads), list(seen), _flat_tree(state)))
+    finally:
+        bert_model.F = real_f
+    (g0, seen0, end0), (g1, _, end1) = runs
+    same_dy = [bool(torch.equal(g0[i], g1[i])) for i in sorted(g0)]
+    differ = {k: (end0[k].float() - end1[k].float()).abs().max().item()
+              for k in end0 if torch.is_tensor(end0[k])
+              and not torch.equal(end0[k], end1[k])}
+    print(f"  {len(batches)} steps on the corpus's first batches (L "
+          f"{[b['txt_ids'].shape[1] for b in batches]}) from one state, "
+          f"twice: the gradient into each embedding lookup (word, position, "
+          f"token type per step) the same: {same_dy}; {len(differ)} of "
+          f"{len(end0)} state tensors differ"
+          + (": " + ", ".join(f"{k} {v:.2e}" for k, v in differ.items())
+             if differ else ""))
+    alone = []
+    for slot in sorted(g0)[2::3]:            # the token-type lookups
+        ids, weight = seen0[slot]
+        outs = []
+        for _ in range(2):
+            w = weight.clone().requires_grad_()
+            (g,) = torch.autograd.grad(F.embedding(ids, w), (w,), g0[slot])
+            outs.append(g)
+        alone.append(bool(torch.equal(*outs)))
+    print(f"  the token-type lookup's backward alone on the captured "
+          f"gradients, the same bits twice: {alone}")
+    del state, model
+
+
+def _jsonl(save: str) -> list:
+    with open(os.path.join(save, "mi.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def drive_mi_cli(root: str, device, bert_kw=BERT_BASE, pairs=CLI_PAIRS,
+                 long=CLI_LONG, batch=BATCH, workers=MANAGER_WORKERS,
+                 stop_step=CLI_STOP_STEP, in_memory_pairs_per_s=None
+                 ) -> dict:
+    """``train_mutual_information(TrainingConfig.production(pallas_stem=
+    True, ...))`` over ``write_cli_corpus``: run A uninterrupted, run B
+    stopped by a SIGTERM after ``stop_step``, run C resuming B ("auto").
+    Raises unless C ends at A's step count on A's bits, every read was a
+    crop-cache hit, only the newest epoch checkpoint is left and the .bin
+    files reload strict.  Returns A's launches and numbers."""
+    from mimm_tpu_torch import preempt
+    from mimm_tpu_torch.cli.multi_modal import train_mutual_information
+
+    cuda = torch.device(device).type == "cuda"
+    card = card_line() if cuda else "cpu"
+    started = time.perf_counter()
+    corpus = write_cli_corpus(os.path.join(root, "corpus"), pairs, long,
+                              bert_kw["vocab_size"], 256, SEED + 23)
+    with open(os.path.join(corpus["bert"], "bert_config.json"), "w") as f:
+        json.dump(bert_kw, f)
+    written = time.perf_counter() - started
+
+    def cfg_for(save, **kw):
+        return TrainingConfig.production(
+            pallas_stem=True, batch_size=batch, num_train_epochs=CLI_EPOCHS,
+            keep_checkpoints=1, data_loader_workers=workers, prefetch=2,
+            seed=SEED, image_dir=corpus["images"],
+            text_data_dir=corpus["text"],
+            dataset_metadata=corpus["metadata"],
+            decoded_crop_cache=corpus["cache"],
+            bert_pretrained_dir=corpus["bert"], save_directory=save, **kw)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    probe = _RunProbe()
+    try:
+        with probe:
+            # ---- A: uninterrupted; the mi_cli path's launches ---------------
+            save_a = os.path.join(root, "run_a")
+            for mod in (fa, sc, pc, ff):
+                mod.reset_launch_counts()       # the mi_cli path starts here
+            _, state = train_mutual_information(cfg_for(save_a), device)
+            _sync(device)
+            launches = {**fa.LAUNCHES, **sc.LAUNCHES, **pc.LAUNCHES,
+                        **ff.LAUNCHES}          # ... and ends here
+            recs = [r for r in _jsonl(save_a) if "epoch_loss" in r]
+            steps, hits = state.step, probe.hits()
+            a_losses = [float(x) for x in torch.stack(probe.losses).cpu()]
+            a_marks, a_lengths = probe.marks, list(probe.lengths)
+            split = {"load": probe.load_s, "copy": probe.copy_s,
+                     "steps": sum(probe.steps), "save": probe.save_s,
+                     "envelope": probe.envelope_s}
+            long_steps = sum(L >= bert_kw.get("flash_min_seq_len", 256)
+                             for L in probe.lengths)
+            bc = BertConfig.from_json_file(os.path.join(save_a,
+                                                        "config.json"))
+            check_reload(save_a, state, bc, epoch=CLI_EPOCHS)
+            files_a = sorted(os.listdir(save_a))
+            want = _flat_tree(state)
+            want_snap = _snapshot(state)
+            del state
+            if cuda:
+                torch.cuda.empty_cache()
+            # ---- B: a SIGTERM after stop_step -------------------------------
+            save_bc = os.path.join(root, "run_bc")
+            probe.reset()
+            probe.stop_at = stop_step
+            _, state = train_mutual_information(cfg_for(save_bc), device)
+            probe.stop_at = None
+            b_step, b_hits = state.step, probe.hits()
+            b_marks = probe.marks
+            preempted = any(r.get("preempted") == 1 for r in _jsonl(save_bc))
+            del state
+            preempt.clear()   # a new process would start without the flag
+            # ---- C: the same command, resume_from "auto" --------------------
+            probe.reset()
+            _, state = train_mutual_information(
+                cfg_for(save_bc, resume_from="auto"), device)
+            _sync(device)
+            c_hits = probe.hits()
+            c_losses = [float(x) for x in torch.stack(probe.losses).cpu()]
+            c_marks = probe.marks
+            got = _flat_tree(state)
+            got_snap = _snapshot(state)
+            c_step = state.step
+            files_c = sorted(os.listdir(save_bc))
+            del state
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        preempt.uninstall()
+        preempt.clear()
+    seconds = time.perf_counter() - started
+
+    per_epoch = steps // CLI_EPOCHS
+    epoch_s = [r["epoch_seconds"] for r in recs]
+    print(f"  corpus: {pairs + 2 * long} pairs ({pairs} by the bucket mix, "
+          f"{long} more at 256 and at 320), vocab {bert_kw['vocab_size']}, "
+          f"windows of a {CXR_SHAPE[0]}x{CXR_SHAPE[1]} CXR, written in "
+          f"{written:.1f} s (host clock)")
+    print(f"  run A: {steps} steps ({per_epoch} an epoch, {long_steps} at L "
+          f">= 256), epochs {', '.join(f'{s:.3f}' for s in epoch_s)} s = "
+          + ", ".join(f"{per_epoch * batch / s:.1f}" for s in epoch_s)
+          + " pairs/s (host clock, mi.jsonl)"
+          + (f"; phase 11's in-memory epoch {in_memory_pairs_per_s:.1f} "
+             f"pairs/s" if in_memory_pairs_per_s else "") + f"  [{card}]")
+    print(f"  run A's {CLI_EPOCHS} epochs ({sum(epoch_s):.3f} s): "
+          f"dataset.load {split['load']:.3f} thread-s over {workers} loader "
+          f"threads, pinned copies {split['copy']:.3f} s, steps "
+          f"{split['steps']:.3f} s (host time in the step calls), "
+          f"save_mi_checkpoints {split['save']:.3f} s (the envelope "
+          f"{split['envelope']:.3f} s of it)  [{card}]")
+    print(f"  crop cache (hits, misses): A {hits}, B {b_hits}, C {c_hits}")
+    print(f"  run B: SIGTERM after step {stop_step}, stopped at step "
+          f"{b_step}, preempted=1 in mi.jsonl: {preempted}; run C resumed "
+          f"to step {c_step} (A {steps}); files left: A "
+          f"{[f for f in files_a if f.endswith('.ckpt')]}, B/C "
+          f"{[f for f in files_c if f.endswith('.ckpt')]}")
+    differ = [k for k in want if not (torch.equal(want[k], got[k])
+                                      if torch.is_tensor(want[k])
+                                      else want[k] == got[k])]
+    print(f"  C against A: {len(want)} tensors and counts, {len(differ)} "
+          f"differ" + (f" ({differ[:3]})" if differ else ", bit for bit"))
+    bad = []
+    if differ:
+        # a library call that is not deterministic: where it starts, and
+        # whether the end is held to phase 5's train-step limits
+        first = next((b_step + i + 1 for i, (x, y) in enumerate(
+            zip(a_marks[b_step:], c_marks)) if not torch.equal(x, y)), None)
+        first_b = next((i + 1 for i, (x, y) in enumerate(
+            zip(a_marks, b_marks)) if not torch.equal(x, y)), None)
+        print(f"  run B against A, steps 1-{b_step}: the token-type table "
+              f"first differs after step {first_b}")
+        if first:
+            rows = (a_marks[first - 1] - c_marks[first - 1 - b_step]).abs() \
+                .amax(dim=1)
+            print(f"  after step {first}, max |diff| of each token-type row: "
+                  + ", ".join(f"{x:.2e}" for x in rows.tolist()))
+        first_loss = next((b_step + i + 1 for i, (x, y) in enumerate(
+            zip(a_losses[b_step:], c_losses)) if x != y), None)
+        out = _step_diff((a_losses[-1], want_snap), (c_losses[-1], got_snap))
+        print(f"  first step after which the token-type table differs: "
+              f"{first} (L={a_lengths[first - 1] if first else None}); "
+              f"whose loss differs: "
+              f"{first_loss}; at the end {_diff_line(out)}")
+        seq = a_lengths[first - 1] if first else SEQ
+        print(f"  F.embedding's backward at ({batch}, {seq}), every index 0, "
+              f"two calls on the same inputs, max |diff|: float32 "
+              f"{embedding_repeat(device, batch, seq):.2e}, bf16 "
+              f"{embedding_repeat(device, batch, seq, dtype=torch.bfloat16):.2e}"
+              f"; under torch.use_deterministic_algorithms: float32 "
+              f"{embedding_repeat(device, batch, seq, deterministic=True):.2e}")
+        torch.backends.cudnn.deterministic = True     # as the runs had it
+        try:
+            rcfg = cfg_for(os.path.join(root, "repeat"))
+            step_repeat(device, rcfg, corpus_batches(rcfg, 3, device))
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        if not all(v[0] <= STEP_MAX_ABS and v[1] <= STEP_FLIP_SHARE
+                   for g, v in out.items() if g not in ("loss_diff", "loss")):
+            bad.append(f"C differs from A past the step limits: {out}")
+    if cuda:
+        layers = bert_kw["num_hidden_layers"]
+        want_launches = {
+            fa.KERNELS[torch.bfloat16]: layers * long_steps,
+            fa.BWD_KERNELS[torch.bfloat16]: layers * long_steps,
+            sc.KERNELS["fwd"]: steps, sc.KERNELS["dw"]: steps}
+        print(f"  run A's launches: {launches} (want {want_launches})")
+        if any(launches.get(n, 0) != c for n, c in want_launches.items()) \
+                or long_steps == 0:
+            bad.append(f"run A's launches {launches}, want {want_launches}")
+    total_hits = [hits, b_hits, c_hits]
+    if any(m for _, m in total_hits) or not all(h for h, _ in total_hits):
+        bad.append(f"crop-cache misses (hits, misses): {total_hits}")
+    if not (0 < b_step < per_epoch and preempted
+            and "mi_preempt.ckpt" in files_c):
+        bad.append(f"run B stopped at step {b_step} (epoch 1 has "
+                   f"{per_epoch}), preempted {preempted}")
+    if c_step != steps:
+        bad.append(f"run C ended at step {c_step}, A at {steps}")
+    last = f"mi_epoch{CLI_EPOCHS}.ckpt"
+    for name, files in (("A", files_a), ("C", files_c)):
+        if [f for f in files if f.startswith("mi_epoch")] != [last]:
+            bad.append(f"run {name} left {files}")
+    if not all(math.isfinite(r["epoch_loss"]) for r in recs):
+        bad.append(f"run A's losses: {recs}")
+    print(f"  phase 12: {seconds:.1f} s (host clock)  [{card}]")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return {"launches": launches, "steps": steps, "long_steps": long_steps,
+            "seconds": seconds, "epoch_seconds": epoch_s, "split": split,
+            "hits": total_hits, "bit_equal": not differ}
+
+
 # ---- main -------------------------------------------------------------------
 
 def main() -> int:
@@ -2781,13 +3300,21 @@ def main() -> int:
           f"in-memory pairs (full width, B={BATCH})")
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
         manager = drive_manager(root, "cuda")
+    torch.cuda.empty_cache()
+    print(f"== phase 12: MI pretraining from disk through its entry point "
+          f"(full width, B={BATCH}, {CLI_EPOCHS} epochs; runs A, B "
+          f"preempted, C resumed)")
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
+        mi_cli = drive_mi_cli(root, "cuda",
+                              in_memory_pairs_per_s=manager["pairs_per_s"])
 
     # each path's launches, counted from 0 just before it and read just
     # after; serving runs the flash forward, training and remat the flash
     # backward too, GradCache the critic kernels, the fused_ffn paths the
     # fused FFN forward (serving) and all four of its kernels (training,
     # remat), the pallas_stem training path and the Manager the stem's
-    # forward and dW, the tower's input gradient its dx
+    # forward and dW, the tower's input gradient its dx, the MI entry
+    # point from disk the bf16 flash kernels and the stem's forward and dW
     flash_all = [*fa.KERNELS.values(), *fa.BWD_KERNELS.values()]
     flash_bf16 = [fa.KERNELS[torch.bfloat16], fa.BWD_KERNELS[torch.bfloat16]]
     paths = {"serving": (serve["launches"], fa.KERNELS.values()),
@@ -2804,7 +3331,9 @@ def main() -> int:
                                       [sc.KERNELS["fwd"], sc.KERNELS["dw"]]),
              "tower_input_grad": (stem["dx_launches"], [sc.KERNELS["dx"]]),
              "manager": (manager["launches"],
-                         [sc.KERNELS["fwd"], sc.KERNELS["dw"]])}
+                         [sc.KERNELS["fwd"], sc.KERNELS["dw"]]),
+             "mi_cli": (mi_cli["launches"],
+                        [*flash_bf16, sc.KERNELS["fwd"], sc.KERNELS["dw"]])}
     for path, (counts, names) in paths.items():
         for name in names:
             if counts.get(name, 0) == 0:

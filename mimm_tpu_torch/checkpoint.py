@@ -1,4 +1,14 @@
-"""Reference ``.bin`` checkpoints and the weight bridge from the JAX package.
+"""The native resume checkpoint, reference ``.bin`` checkpoints and the
+weight bridge from the JAX package.
+
+The resume checkpoint (mimm_tpu/checkpoint.py:47-170 counterpart) is one
+file: a versioned envelope ``{"__mimm_ckpt__": 1, "tree": ...}`` written
+by ``torch.save`` to a temporary name and renamed, whose tree holds
+tensors (on the CPU), numbers, strings, lists and dicts only, so that
+``load_checkpoint`` reads it with ``weights_only=True``.  It is the
+port's own format: the port cannot read JAX's ``mi_epoch<N>.ckpt`` (a
+pickle of optax and flax types), nor JAX the port's.  Weights cross
+between the two through the ``.bin`` exports.
 
 ``.bin`` files are pickled torch state dicts in the reference layout
 (``pytorch_MI_image_model.bin``, ``pytorch_MI_text_model.bin``,
@@ -15,13 +25,82 @@ JAX MI train state the same way.
 
 from __future__ import annotations
 
+import glob
 import os
-from typing import Dict, List, Optional, Sequence
+import re
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 StateDict = Dict[str, torch.Tensor]
+
+# Bump when the envelope's layout changes; load_checkpoint refuses newer
+# versions instead of misreading them.
+CKPT_FORMAT_VERSION = 1
+
+
+def _to_cpu(tree: Any) -> Any:
+    if torch.is_tensor(tree):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_cpu(v) for v in tree]
+    return tree
+
+
+def save_checkpoint(path: str, tree: Any, format: str = "pickle") -> str:
+    """Write ``tree`` as a one-file envelope at ``path`` (a temporary file,
+    then a rename: a kill during the write, say at the end of a preemption's
+    grace window, never leaves a truncated file where ``--resume_from auto``
+    looks).  Only ``format="pickle"`` is written here; multi-rank sharded
+    saves come with the parallel slice."""
+    if format != "pickle":
+        raise NotImplementedError(
+            f"checkpoint_format {format!r}: sharded multi-rank saves come "
+            f"with the parallel slice (ROADMAP.md queue A, \"parallel/"
+            f"mesh.py and parallel/pipeline.py\")")
+    path = os.path.abspath(path)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save({"__mimm_ckpt__": CKPT_FORMAT_VERSION, "tree": _to_cpu(tree)},
+               tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_checkpoint(path: str) -> Any:
+    """The tree of an envelope ``save_checkpoint`` wrote, on the CPU;
+    refuses a newer version."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if not (isinstance(obj, dict) and "__mimm_ckpt__" in obj):
+        raise ValueError(f"{path} is not a resume checkpoint of this package")
+    version = obj["__mimm_ckpt__"]
+    if version > CKPT_FORMAT_VERSION:
+        raise ValueError(f"{path} is checkpoint format v{version}; this build "
+                         f"reads up to v{CKPT_FORMAT_VERSION}")
+    return obj["tree"]
+
+
+def prune_checkpoints(save_dir: str, prefix: str, keep: int) -> list:
+    """Keep only the newest ``keep`` ``<prefix><epoch>.ckpt`` files (by
+    epoch number) in ``save_dir``; returns the deleted paths.  ``keep`` <=
+    0 keeps all.  A preemption checkpoint (no epoch number) and the
+    ``.bin`` exports, the downstream contract, are never touched."""
+    if keep <= 0:
+        return []
+    found = []
+    for path in glob.glob(os.path.join(save_dir, f"{prefix}*.ckpt")):
+        m = re.fullmatch(re.escape(prefix) + r"(\d+)\.ckpt",
+                         os.path.basename(path))
+        if m:
+            found.append((int(m.group(1)), path))
+    deleted = []
+    for _, path in sorted(found)[:-keep]:
+        os.remove(path)
+        deleted.append(path)
+    return deleted
 
 
 def load_state_dict_bin(path: str) -> StateDict:

@@ -1,14 +1,17 @@
 """Configuration the port shares with the JAX package (copied, not
 imported): the classifier architecture, ``TrainingConfig`` with the fields
-the MI train step reads, the ``production()`` / ``parity()`` presets
-(mimm_tpu/config.py:79-373) and ``PRODUCTION_SEQ_BUCKETS``.  The other
-fields of the JAX config come with the slices that read them."""
+the MI trainer reads, the ``production()`` / ``parity()`` presets
+(mimm_tpu/config.py:79-373), ``PRODUCTION_SEQ_BUCKETS`` and the command
+line, ``construct_training_parameters`` (:397-441).  The other fields of
+the JAX config come with the slices that read them."""
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import os
 from dataclasses import dataclass
+from typing import Optional, Sequence
 
 _REPO_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -37,19 +40,24 @@ class TrainingConfig:
     shallow-conv kernels), ``u8_dropout``, both moment dtypes, the freezes,
     ``grad_cache_chunks`` (GradCache's two passes above 1), and
     ``global_negatives`` on one device; ``MultiModalManager`` also reads
-    ``seq_buckets``, ``data_loader_workers``, ``prefetch`` and
-    ``checkpoint_every_epochs``.  TPU schedules it accepts because they give
+    the data's paths (``image_dir``, ``text_data_dir``,
+    ``dataset_metadata``, ``decoded_crop_cache``), ``seq_buckets``,
+    ``data_loader_workers``, ``prefetch``, ``checkpoint_every_epochs``,
+    ``resume_from`` ("" | "auto" | a path), ``keep_checkpoints`` and
+    ``checkpoint_format`` "pickle".  TPU schedules it accepts because they give
     the same result: ``scan_steps`` (K steps run as a loop), ``rng_impl``
     (masks come from torch generators), ``compact_transfer``, ``s2d_stem``
     (the canonical stem; exclusive with ``pallas_stem``, as in JAX).  Knobs
     of later slices raise in ``train/mi.py`` when set: the mesh and
-    parallel modes, ``resume_from``, ``keep_checkpoints``, a
-    ``checkpoint_format`` other than "pickle", ``profile_steps`` and
+    parallel modes, the "orbax" formats, ``profile_steps`` and
     ``tensorboard``."""
 
+    image_dir: str = _default("full_data_set/images/")
+    text_data_dir: str = _default("training_data/text/")
     bert_pretrained_dir: str = _default("bert_pretrain_all_notes_150000")
     bert_config_name: str = "bert_config.json"
     save_directory: str = _default("save_dir")
+    dataset_metadata: str = _default("training_data/training_label_negbio.csv")
 
     batch_size: int = 64
     data_loader_workers: int = 32
@@ -79,6 +87,7 @@ class TrainingConfig:
     fused_ffn: bool = False
     pallas_stem: bool = False
     compact_transfer: bool = True
+    decoded_crop_cache: str = ""
     rng_impl: str = "unsafe_rbg"
     seq_buckets: tuple = ()
     scan_steps: int = 1
@@ -137,3 +146,66 @@ _PARITY_OVERRIDES = dict(
     compact_transfer=False,
     rng_impl="threefry2x32",
 )
+
+
+def _parse_mesh_shape(s: str) -> tuple:
+    """``data=4,model=2`` -> (("data", 4), ("model", 2))."""
+    if not s.strip():
+        return ()
+    pairs = []
+    for part in s.split(","):
+        name, _, size = part.partition("=")
+        name = name.strip()
+        if not name or not size.strip().isdigit() or int(size) < 1:
+            raise argparse.ArgumentTypeError(
+                f"--mesh_shape expects axis=size pairs with size >= 1, "
+                f"e.g. 'data=4,model=2'; got {part!r}")
+        if any(n == name for n, _ in pairs):
+            raise argparse.ArgumentTypeError(
+                f"--mesh_shape axis {name!r} given twice")
+        pairs.append((name, int(size)))
+    return tuple(pairs)
+
+
+def _add_fields(parser: argparse.ArgumentParser, cfg) -> None:
+    """One flag per field.  default=SUPPRESS: the namespace holds only the
+    flags given, so they override a --preset and the rest keeps its
+    values (help shows the dataclass default)."""
+    for f in dataclasses.fields(cfg):
+        default = getattr(cfg, f.name)
+        help_ = f"(default: {default!r})"
+        if f.name == "mesh_shape":
+            arg_type = _parse_mesh_shape
+        elif type(default) is bool:
+            arg_type = lambda s: s.lower() in ("1", "true", "yes")
+        elif type(default) is tuple:
+            # comma-separated ints, e.g. --seq_buckets 64,128,192,320
+            arg_type = lambda s: tuple(int(x) for x in s.split(",")
+                                       if x.strip())
+        else:
+            arg_type = type(default)
+        parser.add_argument(f"--{f.name}", type=arg_type,
+                            default=argparse.SUPPRESS, help=help_)
+
+
+def construct_training_parameters(
+        argv: Optional[Sequence[str]] = None,
+        parents: Sequence[argparse.ArgumentParser] = ()) -> TrainingConfig:
+    """The reference's flags (helpers.py:84-144) and ``--preset
+    {production,parity}``: the named preset, then every flag given on
+    top.  ``parents``: parsers (``add_help=False``) of an entry point's
+    own flags, shown in the help and left out of the config."""
+    parser = argparse.ArgumentParser(parents=list(parents))
+    parser.add_argument("--preset", choices=("production", "parity"),
+                        default="",
+                        help="named base config (TrainingConfig.production/"
+                             ".parity); explicit flags override it")
+    _add_fields(parser, TrainingConfig())
+    ns = vars(parser.parse_args(argv))
+    for p in parents:
+        for dest in vars(p.parse_known_args([])[0]):
+            ns.pop(dest, None)
+    preset = ns.pop("preset", "")
+    base = {"production": TrainingConfig.production,
+            "parity": TrainingConfig.parity}.get(preset, TrainingConfig)()
+    return base.replace(**ns)

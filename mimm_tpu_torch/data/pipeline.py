@@ -1,43 +1,83 @@
-"""Host input pipeline: the deterministic loader, scan chunks and the
-device prefetch (mimm_tpu/data/pipeline.py counterpart, :70, :218-569).
+"""Host input pipeline: the on-disk datasets, the deterministic loader,
+scan chunks and the device prefetch (mimm_tpu/data/pipeline.py
+counterpart, :41-569).
 
-* ``Loader`` batches an index -> sample dataset (``len`` and
-  ``load(idx, rng, train)``; ``token_length(idx)`` for bucketing),
-  deterministic per (seed, epoch): the epoch's shuffle comes from
-  ``default_rng((seed, epoch))`` and each sample's augmentation from
-  ``default_rng((seed, epoch, idx))``, so the batch stream is bit-equal to
-  the JAX package's for the same dataset.  Bad records (``load`` returns
-  None) are skipped and counted in ``loader.skipped``.  ``num_workers``
-  threads decode ahead and are consumed in submission order.
+* The datasets are index -> sample functions over the reference's on-disk
+  contracts: a metadata CSV keyed by the ``mimic_id`` path column, images
+  under ``img_dir`` (decoded by cv2, imported at the read) or their
+  crop-cache windows (data/crop_cache.py), token features by study id
+  (data/features.py), ``disease_stats.csv`` filters (data/etl.py).  A
+  sample is a pure function of (seed, epoch, index): bit-equal to the JAX
+  package's over the same files.
+* ``Loader`` batches a dataset (``len`` and ``load(idx, rng, train)``;
+  ``token_length(idx)`` for bucketing), deterministic per (seed, epoch):
+  the epoch's shuffle comes from ``default_rng((seed, epoch))`` and each
+  sample's augmentation from ``default_rng((seed, epoch, idx))``, so the
+  batch stream is bit-equal to the JAX package's for the same dataset.
+  Bad records (``load`` returns None) are skipped and counted in
+  ``loader.skipped``.  ``num_workers`` threads decode ahead and are
+  consumed in submission order.
 * ``scan_chunks`` groups same-shape batches into stacked super-batches for
-  ``make_mi_multi_step``.
+  ``make_mi_multi_step``; ``resume_chunks`` gives the rest of an epoch
+  whose first steps ran as such chunks, in the uninterrupted order.
 * ``device_prefetch`` copies batches to the card ``size`` batches ahead of
   their use: pinned host memory and ``non_blocking=True`` copies, issued on
   the consuming thread (JAX measured a transfer thread slower, :562-568).
 
-The on-disk datasets (JPEG decode, transforms, the crop cache) come with a
-later slice (ROADMAP.md queue A, item 4); the loader takes any object with
-the dataset interface.  Multi-process slicing (``process_count`` > 1)
-comes with the parallel slice (item 9) and raises.
+Multi-process slicing (``process_count`` > 1) comes with the parallel
+slice and raises.
 """
 
 from __future__ import annotations
 
 import collections
+import csv
 import hashlib
 import logging
 import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Collection, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from mimm_tpu_torch import resolve_device
+from mimm_tpu_torch.data import transforms
+from mimm_tpu_torch.data.etl import read_disease_stats
+from mimm_tpu_torch.utils import MimicID
 
 logger = logging.getLogger(__name__)
+
+_PARALLEL = ("comes with the parallel slice (ROADMAP.md queue A, "
+             "\"parallel/mesh.py and parallel/pipeline.py\")")
+
+
+def _imread(path: str) -> Optional[np.ndarray]:
+    """A grayscale read at the file's own depth (the reference's
+    cv2.imread(..., IMREAD_ANYDEPTH), model_utils.py:80); None if cv2
+    cannot read it."""
+    import cv2
+    return cv2.imread(path, cv2.IMREAD_ANYDEPTH)
+
+
+def _read_transformed(img_dir: str, img_id: str, img_size: int,
+                      rng: Optional[np.random.Generator], train: bool,
+                      raw: bool, crop_cache) -> Optional[np.ndarray]:
+    """Decode (or read from the crop cache) and transform one image."""
+    if crop_cache is not None:
+        got = crop_cache.read(img_dir, img_id)
+        if got is None:
+            return None
+        win, oy, ox, h, w = got
+        return transforms.reference_transform_window(
+            win, (oy, ox), (h, w), rng, img_size, train=train, raw=raw)
+    img = _imread(os.path.join(img_dir, img_id))
+    if img is None:
+        return None
+    return transforms.reference_transform(img, rng, img_size, train=train,
+                                          raw=raw)
 
 
 def study_id_to_int(study_id: str) -> int:
@@ -47,6 +87,137 @@ def study_id_to_int(study_id: str) -> int:
         # stable across processes (the builtin hash() is salted per process)
         digest = hashlib.md5(str(study_id).encode()).digest()
         return int.from_bytes(digest[:8], "little") % (2 ** 62)
+
+
+def _read_metadata_csv(path: str) -> List[Dict[str, str]]:
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+class CXRImageDataset:
+    """Images only (reference CXRImageDataset, model_utils.py:41-89): a
+    metadata CSV whose ``data_key`` column holds image paths under
+    ``img_dir``.  ``compact``: the crop in its 8- or 16-bit source dtype,
+    normalized on the device (ops/image_norm.py)."""
+
+    def __init__(self, img_dir: str, dataset_metadata: str,
+                 img_size: int = 256, data_key: str = "mimic_id",
+                 compact: bool = False, crop_cache=None):
+        self.img_dir = img_dir
+        self.img_size = img_size
+        self.rows = _read_metadata_csv(dataset_metadata)
+        self.data_key = data_key
+        self.compact = compact
+        self.crop_cache = crop_cache
+
+    def __len__(self):
+        return len(self.rows)
+
+    def load(self, idx: int, rng: Optional[np.random.Generator],
+             train: bool = True) -> Optional[Dict[str, np.ndarray]]:
+        img = _read_transformed(self.img_dir, self.rows[idx][self.data_key],
+                                self.img_size, rng, train, self.compact,
+                                self.crop_cache)
+        if img is None:
+            return None
+        return {"image": img[..., None]}  # HWC, C = 1
+
+
+class CXRImageReportDataset:
+    """Image and tokenized report pairs (reference model_utils.py:92-230):
+    the report of the image's study from ``token_features`` (a
+    TokenFeatureSet); a study without one is an unreadable record.
+    ``compact``: the integer crop, uint16 ids (where the vocabulary fits),
+    uint8 masks and segments; the step widens them on the device."""
+
+    def __init__(self, token_features, img_dir: str, dataset_metadata: str,
+                 img_size: int = 256, data_key: str = "mimic_id",
+                 compact: bool = False, crop_cache=None):
+        self.tokens = token_features
+        self.img_dir = img_dir
+        self.img_size = img_size
+        self.rows = _read_metadata_csv(dataset_metadata)
+        self.crop_cache = crop_cache
+        self.data_key = data_key
+        self.compact = compact
+        self._narrow_ids = bool(compact) and \
+            int(token_features.input_ids.max(initial=0)) < 2 ** 16
+
+    def __len__(self):
+        return len(self.rows)
+
+    def token_length(self, idx: int) -> int:
+        """The report's true token count (its mask's sum; 0 without a
+        report): what sequence bucketing reads."""
+        study_id = MimicID.get_study_id(self.rows[idx][self.data_key])
+        tok = self.tokens.lookup(study_id)
+        return 0 if tok is None else int(tok[1].sum())
+
+    def load(self, idx: int, rng: Optional[np.random.Generator],
+             train: bool = True) -> Optional[Dict[str, np.ndarray]]:
+        img_id = self.rows[idx][self.data_key]
+        study_id = MimicID.get_study_id(img_id)
+        tok = self.tokens.lookup(study_id)
+        if tok is None:
+            return None
+        img = _read_transformed(self.img_dir, img_id, self.img_size, rng,
+                                train, self.compact, self.crop_cache)
+        if img is None:
+            return None
+        ids, mask, segments = tok
+        if self.compact:
+            if self._narrow_ids:
+                ids = ids.astype(np.uint16)
+            mask = mask.astype(np.uint8)
+            segments = segments.astype(np.uint8)
+        return {"image": img[..., None], "txt_ids": ids, "txt_masks": mask,
+                "txt_segments": segments,
+                "study_id": np.int64(study_id_to_int(study_id))}
+
+
+class CXRImageDiseaseDataset:
+    """One disease's classification set (reference model_utils.py:232-337):
+    the metadata rows of its positive and negative studies from
+    ``disease_stats.csv``, in file order, until the recorded counts are
+    reached."""
+
+    def __init__(self, img_dir: str, dataset_metadata: str, disease: str,
+                 disease_stats: str, img_size: int = 256,
+                 data_key: str = "mimic_id", compact: bool = False,
+                 crop_cache=None):
+        pos, neg = read_disease_stats(disease_stats, disease)
+        pos_set, neg_set = set(pos), set(neg)
+        self.img_dir = img_dir
+        self.img_size = img_size
+        self.data_key = data_key
+        self.compact = compact
+        self.crop_cache = crop_cache
+        self.rows: List[Dict[str, str]] = []
+        self.labels: List[int] = []
+        cap = len(pos) + len(neg)
+        for row in _read_metadata_csv(dataset_metadata):
+            study = MimicID.get_study_id(row[data_key])
+            if study in pos_set:
+                self.rows.append(row)
+                self.labels.append(1)
+            elif study in neg_set:
+                self.rows.append(row)
+                self.labels.append(0)
+            if len(self.rows) >= cap:
+                break
+
+    def __len__(self):
+        return len(self.rows)
+
+    def load(self, idx: int, rng: Optional[np.random.Generator],
+             train: bool = True) -> Optional[Dict[str, np.ndarray]]:
+        img = _read_transformed(self.img_dir, self.rows[idx][self.data_key],
+                                self.img_size, rng, train, self.compact,
+                                self.crop_cache)
+        if img is None:
+            return None
+        return {"image": img[..., None],
+                "label": np.float32(self.labels[idx])}
 
 
 class Loader:
@@ -65,8 +236,7 @@ class Loader:
                  process_count: int = 1, process_index: int = 0):
         if process_count != 1 or process_index != 0:
             raise NotImplementedError(
-                "multi-process input slicing comes with the parallel slice "
-                "(ROADMAP.md queue A, item 9)")
+                f"multi-process input slicing {_PARALLEL}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
@@ -114,17 +284,48 @@ class Loader:
                 return b
         return self.bucket_lengths[-1]
 
-    def epoch(self, epoch: int, start_batch: int = 0
+    def _order(self, epoch: int) -> np.ndarray:
+        order = np.arange(len(self.dataset))
+        np.random.default_rng((self.seed, epoch)).shuffle(order)
+        return order
+
+    def _index_batches(self, order: np.ndarray):
+        """(text length or None, indices) of each batch, composed from
+        index metadata alone (no record decoded)."""
+        if self.bucket_lengths is None:
+            group: List[int] = []
+            for idx in order:
+                group.append(int(idx))
+                if len(group) == self.batch_size:
+                    yield None, group
+                    group = []
+            return
+        buckets: Dict[int, List[int]] = {b: [] for b in self.bucket_lengths}
+        for idx in order:
+            b = self._bucket_of(int(idx))
+            buckets[b].append(int(idx))
+            if len(buckets[b]) == self.batch_size:
+                yield b, buckets[b]
+                buckets[b] = []
+
+    def batch_lengths(self, epoch: int) -> list:
+        """The bucket length (None without bucketing) of each batch of
+        ``epoch``'s index-composed stream, decoding nothing."""
+        return [b for b, _ in self._index_batches(self._order(epoch))]
+
+    def epoch(self, epoch: int, start_batch: int = 0,
+              skip_batches: Collection[int] = ()
               ) -> Iterator[Dict[str, np.ndarray]]:
         """Yield stacked numpy batches for one epoch.  ``start_batch``:
         yield only batches ``start_batch:`` of the epoch's index-composed
-        stream (a mid-epoch resume), decoding none of the skipped records;
-        a bad record there is replaced by zeros, keeping the composition."""
+        stream (a mid-epoch resume); ``skip_batches``: leave out these
+        positions of that stream too.  The left-out records are never
+        decoded, and a bad record in a composed stream is replaced by
+        zeros, keeping the composition."""
         if start_batch < 0:
             raise ValueError(f"start_batch {start_batch} must be >= 0")
-        n = len(self.dataset)
-        order = np.arange(n)
-        np.random.default_rng((self.seed, epoch)).shuffle(order)
+        skip_batches = frozenset(skip_batches)
+        order = self._order(epoch)
 
         def sample_rng(idx):
             return np.random.default_rng((self.seed, epoch, int(idx)))
@@ -154,24 +355,6 @@ class Loader:
                     idx, f = pending.popleft()
                     yield idx, f.result()
 
-        def index_batches():
-            """The batch composition from index metadata alone."""
-            if self.bucket_lengths is None:
-                group: List[int] = []
-                for idx in order:
-                    group.append(int(idx))
-                    if len(group) == self.batch_size:
-                        yield None, group
-                        group = []
-                return
-            buckets: Dict[int, List[int]] = {b: [] for b in self.bucket_lengths}
-            for idx in order:
-                b = self._bucket_of(int(idx))
-                buckets[b].append(int(idx))
-                if len(buckets[b]) == self.batch_size:
-                    yield b, buckets[b]
-                    buckets[b] = []
-
         def load_or_substitute(idx: int):
             s = load(idx)
             if s is None:
@@ -197,8 +380,9 @@ class Loader:
             pool = ThreadPoolExecutor(max_workers=self.num_workers) \
                 if self.num_workers > 0 else None
             try:
-                for composed, (seq_len, group) in enumerate(index_batches()):
-                    if composed < start_batch:
+                for composed, (seq_len, group) in enumerate(
+                        self._index_batches(order)):
+                    if composed < start_batch or composed in skip_batches:
                         continue
                     if pool is not None and self._template is not None:
                         samples = list(pool.map(load_or_substitute, group))
@@ -244,7 +428,8 @@ class Loader:
                 out_q.put(None)
 
         q: queue.Queue = queue.Queue(maxsize=self.QUEUE_BATCHES)
-        target = producer_resumed if start_batch > 0 else producer
+        target = producer_resumed if start_batch > 0 or skip_batches \
+            else producer
         t = threading.Thread(target=target, args=(q,), daemon=True)
         t.start()
         while True:
@@ -288,6 +473,66 @@ def scan_chunks(batches: Iterator[Dict[str, np.ndarray]],
             pending[key] = []
     for group in pending.values():
         yield from group
+
+
+def scan_plan(keys: Sequence, k: int) -> List[List[int]]:
+    """The dispatches ``scan_chunks(stream, k)`` makes of a stream whose
+    batches have the grouping keys ``keys`` (text lengths): lists of batch
+    positions, in the order they are yielded."""
+    plan: List[List[int]] = []
+    pending: Dict = {}
+    for pos, key in enumerate(keys):
+        group = pending.setdefault(key, [])
+        group.append(pos)
+        if len(group) == max(1, k):
+            plan.append(group)
+            pending[key] = []
+    for group in pending.values():
+        plan.extend([p] for p in group)
+    return plan
+
+
+def resume_chunks(loader: "Loader", epoch: int, steps_done: int, k: int,
+                  max_len: Optional[int] = None
+                  ) -> Iterator[Dict[str, np.ndarray]]:
+    """The rest of ``epoch`` after its first ``steps_done`` steps ran as
+    ``scan_chunks(loader.epoch(epoch), k)`` dispatches: the dispatches the
+    uninterrupted epoch makes after them, in its order, the consumed
+    batches neither decoded nor yielded.  Grouping reorders batches, so the
+    consumed ones are not a prefix of the stream, and ``start_batch`` alone
+    would train on other batches than the run that was never stopped.
+    ``max_len``: the samples' text width, where a bucket is wider (its
+    batches then group with the next bucket's, as ``scan_chunks`` keys on
+    the array width).  Raises ValueError at once if ``steps_done`` does not
+    end a dispatch."""
+    keys = [b if b is None or max_len is None else min(b, max_len)
+            for b in loader.batch_lengths(epoch)]
+    plan = scan_plan(keys, k)
+    done, used = 0, 0
+    while done < steps_done and used < len(plan):
+        done += len(plan[used])
+        used += 1
+    if done != steps_done:
+        raise ValueError(f"{steps_done} steps do not end a dispatch of "
+                         f"scan_steps {k} in epoch {epoch}")
+    consumed = {p for d in plan[:used] for p in d}
+    return _dispatches(
+        plan[used:],
+        zip((p for p in range(len(keys)) if p not in consumed),
+            loader.epoch(epoch, skip_batches=consumed)))
+
+
+def _dispatches(plan, stream) -> Iterator[Dict[str, np.ndarray]]:
+    """Each dispatch of ``plan`` from (position, batch) pairs: a chunk
+    stacked on a leading axis, a single batch as it is."""
+    ready: Dict[int, Dict[str, np.ndarray]] = {}
+    for dispatch in plan:
+        while not all(p in ready for p in dispatch):
+            pos, batch = next(stream)
+            ready[pos] = batch
+        group = [ready.pop(p) for p in dispatch]
+        yield group[0] if len(group) == 1 else \
+            {kk: np.stack([g[kk] for g in group]) for kk in group[0]}
 
 
 def _to_device(batch: Dict[str, np.ndarray], device: torch.device) -> dict:

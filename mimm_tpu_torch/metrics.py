@@ -4,7 +4,7 @@
 ``MetricWriter`` writes scalars to ``<save_dir>/<name>.jsonl`` and mirrors
 epoch summaries into a reference-format log file (``Epoch N loss = ...``).
 The TensorBoard mirror comes with the profiling slice (ROADMAP.md queue A,
-item 10) and raises.  ``Plot_Training`` draws with matplotlib, imported at
+"profiling.py and tbevents.py") and raises.  ``Plot_Training`` draws with matplotlib, imported at
 the call; where matplotlib is not installed it logs a warning and writes
 no PNG (a host artifact; nothing reads it back).
 """
@@ -78,7 +78,7 @@ class MetricWriter:
         if tensorboard:
             raise NotImplementedError("the TensorBoard mirror comes with the "
                                       "profiling slice (ROADMAP.md queue A, "
-                                      "item 10)")
+                                      "\"profiling.py and tbevents.py\")")
         os.makedirs(save_directory, exist_ok=True)
         self.save_directory = save_directory
         self.jsonl_path = os.path.join(save_directory, f"{name}.jsonl")

@@ -59,7 +59,8 @@ def mi_loss_from_embeddings(params: List[dict], emb_img: torch.Tensor,
     if axis_name is not None:
         raise NotImplementedError(
             "axis_name (negatives gathered across ranks) comes with the "
-            "parallel slice (ROADMAP.md queue A)")
+            "parallel slice (ROADMAP.md queue A, \"parallel/mesh.py and "
+            "parallel/pipeline.py\")")
     if use_pallas:
         from mimm_tpu_torch.ops.pairwise_critic import \
             pairwise_critic_scores_pallas

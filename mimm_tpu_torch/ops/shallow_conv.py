@@ -2,8 +2,8 @@
 (mimm_tpu/ops/shallow_conv.py counterpart, queue B rows 12-14).
 
 ``shallow_conv3x3(x, weight, out_dtype)``: a 3x3, stride 1, zero-pad 1
-convolution of a one-channel image ``x`` ((B, H, W, 1) NHWC, or the same
-memory as (B, 1, H, W)) with ``weight`` (C, 1, 3, 3), the port's
+convolution of a one-channel image ``x`` ((B, H, W, 1) NHWC, as JAX's
+:178 takes it) with ``weight`` (C, 1, 3, 3), the port's
 ``conv1.weight``, in float32.  It returns (B, C, H, W) NCHW in
 ``out_dtype``, the layout the port's tower runs in.  Every product and sum
 is float32 (float64 for float64 inputs, which only the CPU takes, for
@@ -58,9 +58,10 @@ def _acc(t: torch.Tensor) -> torch.Tensor:
 
 
 def _image(x: torch.Tensor) -> torch.Tensor:
-    """(B, H, W) view of a (B, H, W, 1) or (B, 1, H, W) image."""
-    return x.reshape(x.shape[0], -1, x.shape[-1]) if x.shape[1] == 1 \
-        else x.reshape(x.shape[:3])
+    """(B, H, W) view of a (B, H, W, 1) NHWC image: the layout is the
+    caller's, never guessed from the shape (an image of H = 1 is (B, 1, W,
+    1))."""
+    return x[..., 0]
 
 
 # ---- the plain versions -----------------------------------------------------
@@ -206,9 +207,9 @@ def _check(weight: torch.Tensor, image_shape, tensors) -> None:
 
 
 def _image_shape(x: torch.Tensor):
-    if x.dim() != 4 or 1 not in (x.shape[1], x.shape[3]):
-        raise ValueError(f"the shallow conv takes a one-channel image (B, H, "
-                         f"W, 1) or (B, 1, H, W); got {tuple(x.shape)}")
+    if x.dim() != 4 or x.shape[3] != 1:
+        raise ValueError(f"the shallow conv takes a one-channel NHWC image "
+                         f"(B, H, W, 1); got {tuple(x.shape)}")
     return tuple(_image(x).shape)
 
 
@@ -260,6 +261,6 @@ class _ShallowConv(torch.autograd.Function):
 def shallow_conv3x3(x: torch.Tensor, weight: torch.Tensor,
                     out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """3x3 / stride-1 / pad-1 convolution of a one-channel image: x (B, H,
-    W, 1) or (B, 1, H, W), weight (C, 1, 3, 3) float32; returns (B, C, H, W)
-    in ``out_dtype``."""
+    W, 1) NHWC, weight (C, 1, 3, 3) float32; returns (B, C, H, W) in
+    ``out_dtype``."""
     return _ShallowConv.apply(x, weight, out_dtype)

@@ -7,10 +7,12 @@ the study-id-masked negatives, the backward, and three optimizer updates:
 Adam on the image tower, Adam on the critic, pytorch_transformers AdamW
 with warmup-linear on the text tower (reference main_utils.py:151-230).
 
-Entry points: ``MultiModalManager(cfg).train(None, dataset=...)``, the
-epoch loop a user trains with (:633-859), and beneath it, as the JAX bench
-drives them, ``create_mi_state`` -> ``make_mi_train_step`` /
-``make_mi_multi_step`` -> ``save_mi_checkpoints``.
+Entry points: ``mimm_tpu_torch.cli.multi_modal`` (pretraining from disk),
+``MultiModalManager(cfg).train(token_features)``, the epoch loop it runs
+(:633-859: the on-disk dataset, the resume checkpoint, preemption,
+pruning), and beneath it, as the JAX bench drives them,
+``create_mi_state`` -> ``make_mi_train_step`` / ``make_mi_multi_step`` ->
+``save_mi_checkpoints``.
 The state's modules and critic tensors are updated in place.  Randomness
 comes from one ``torch.Generator`` per step on the model's device, seeded
 from (cfg.seed, step), the counterpart of ``fold_in(key(seed), step)``.
@@ -26,9 +28,8 @@ the critic's size switch takes the pairwise-critic kernels.
 
 Left to later slices, and raising ``NotImplementedError`` when asked for:
 the mesh and parallel modes (pp, ZeRO-1, FSDP, sequence parallelism, bf16
-gradient all-reduce, per-shard negatives), the native resume checkpoint
-and what rests on it (resume, pruning, other formats), the on-disk
-datasets, and the profiler and TensorBoard hooks of the Manager.
+gradient all-reduce, per-shard negatives, the "orbax" checkpoint formats),
+and the profiler and TensorBoard hooks of the Manager.
 """
 
 from __future__ import annotations
@@ -44,8 +45,11 @@ import numpy as np
 import torch
 
 from mimm_tpu_torch import checkpoint as ckpt
-from mimm_tpu_torch import resolve_device
-from mimm_tpu_torch.data.pipeline import Loader, device_prefetch, scan_chunks
+from mimm_tpu_torch import preempt, resolve_device
+from mimm_tpu_torch.data import crop_cache
+from mimm_tpu_torch.data.pipeline import (CXRImageReportDataset, Loader,
+                                          device_prefetch, resume_chunks,
+                                          scan_chunks)
 from mimm_tpu_torch.metrics import MetricWriter, Plot_Training
 from mimm_tpu_torch.models.bert import BertConfig
 from mimm_tpu_torch.models.joint import ImageReportModel
@@ -58,12 +62,16 @@ from mimm_tpu_torch.train.optim import (GradientTransformation, adam_torch,
                                         adamw_hf, apply_updates,
                                         bert_decay_mask, bert_trainable_mask,
                                         freeze, resnet_trainable_mask,
+                                        state_from_tree, state_to_tree,
                                         warmup_linear_schedule)
 
 logger = logging.getLogger(__name__)
 
 CRITIC_HIDDEN = (1024, 512)  # reference main_utils.py:77
-_PARALLEL = "comes with the parallel slice (ROADMAP.md queue A, item 9)"
+_PARALLEL = ("comes with the parallel slice (ROADMAP.md queue A, "
+             "\"parallel/mesh.py and parallel/pipeline.py\")")
+_PROFILING = ("come with the profiling slice (ROADMAP.md queue A, "
+              "\"profiling.py and tbevents.py\")")
 
 
 @dataclasses.dataclass
@@ -429,15 +437,48 @@ def make_mi_multi_step(model: ImageReportModel, txs: MIOptimizers, cfg,
     return multi_step
 
 
+def mi_state_tree(state: MITrainState) -> dict:
+    """What a step needs to continue bit for bit: the towers' state dicts
+    (BatchNorm running statistics included), the critic, the three
+    optimizer states (moments in their own dtypes) and ``step``.  No
+    generator state: a step's generators are seeded from (seed, step)
+    (``step_generator``, ``chunk_generator``) and the loader's from (seed,
+    epoch, index)."""
+    return {"image_model": state.model.image_model.state_dict(),
+            "text_model": state.model.text_model.state_dict(),
+            "critic": [dict(layer) for layer in state.critic_params],
+            "img_opt": state_to_tree(state.img_opt),
+            "mi_opt": state_to_tree(state.mi_opt),
+            "txt_opt": state_to_tree(state.txt_opt),
+            "step": int(state.step)}
+
+
+def restore_mi_state(model: ImageReportModel, cfg, txs: MIOptimizers,
+                     tree: dict) -> MITrainState:
+    """A state on ``model`` from ``mi_state_tree``'s tree (a resume
+    checkpoint's): the weights loaded ``strict=True``, the optimizer states
+    and ``step`` as saved."""
+    state = create_mi_state(model, cfg, txs, None, weights=tree)
+    device = next(model.parameters()).device
+    state.img_opt = state_from_tree(tree["img_opt"], device)
+    state.mi_opt = state_from_tree(tree["mi_opt"], device)
+    state.txt_opt = state_from_tree(tree["txt_opt"], device)
+    state.step = int(tree["step"])
+    return state
+
+
 def save_mi_checkpoints(save_dir: str, state: MITrainState, epoch: int,
                         bert_config: BertConfig,
                         export_torch_bins: bool = True) -> str:
-    """``config.json`` and the reference ``.bin`` contracts (model.py:
+    """The resume checkpoint ``mi_epoch<N>.ckpt`` (``mi_state_tree``),
+    ``config.json`` and the reference ``.bin`` contracts (model.py:
     557-595): ``pytorch_MI_image_model.bin``, ``pytorch_MI_text_model.bin``
-    and the joint ``pytorch_model_epoch<N>.bin``.  Returns ``save_dir``.
-    The native resume checkpoint is a later slice (ROADMAP.md queue A,
-    the `checkpoint.py` item)."""
+    and the joint ``pytorch_model_epoch<N>.bin``.  Returns the resume
+    checkpoint's path."""
     os.makedirs(save_dir, exist_ok=True)
+    path = ckpt.save_checkpoint(os.path.join(save_dir,
+                                             f"mi_epoch{epoch}.ckpt"),
+                                mi_state_tree(state))
     bert_config.to_json_file(os.path.join(save_dir, "config.json"))
     if export_torch_bins:
         img_sd = state.model.image_model.state_dict()
@@ -449,34 +490,21 @@ def save_mi_checkpoints(save_dir: str, state: MITrainState, epoch: int,
         ckpt.save_joint_state_dict_bin(
             os.path.join(save_dir, f"pytorch_model_epoch{epoch}.bin"),
             img_sd, txt_sd)
-    return save_dir
+    return path
 
 
-_RESUME = ("comes with the native resume checkpoint (ROADMAP.md queue A, "
-           "item 5)")
-
-
-def _check_manager(cfg, dataset, mesh, resume_from) -> None:
+def _check_manager(cfg, mesh) -> None:
     """The Manager's knobs of later slices raise before anything is
     written."""
-    if dataset is None:
-        raise NotImplementedError(
-            "the on-disk datasets (CXRImageReportDataset, the transforms, the "
-            "crop cache) come with a later slice (ROADMAP.md queue A, item "
-            "4); pass dataset=")
     if mesh is not None or cfg.mesh_shape:
         raise NotImplementedError(f"a mesh {_PARALLEL}")
-    if resume_from is not None or cfg.resume_from:
-        raise NotImplementedError(f"resume_from / preemption {_RESUME}")
-    if cfg.keep_checkpoints > 0:
-        raise NotImplementedError(f"keep_checkpoints {_RESUME}")
     if cfg.checkpoint_format != "pickle":
-        raise NotImplementedError(f"checkpoint_format "
-                                  f"{cfg.checkpoint_format!r} {_RESUME}")
+        raise NotImplementedError(
+            f"checkpoint_format {cfg.checkpoint_format!r}: sharded "
+            f"multi-rank saves {_PARALLEL}")
     if cfg.profile_steps > 0 or cfg.tensorboard:
-        raise NotImplementedError("profile_steps and tensorboard come with "
-                                  "the profiling slice (ROADMAP.md queue A, "
-                                  "item 10)")
+        raise NotImplementedError(f"profile_steps and tensorboard "
+                                  f"{_PROFILING}")
 
 
 def _epoch_loss(step_losses: list) -> float:
@@ -516,23 +544,35 @@ class MultiModalManager:
               resume_from: Optional[str] = None,
               stop_after_epoch: Optional[int] = None) -> MITrainState:
         """``num_epochs`` epochs (default ``cfg.num_train_epochs``) over
-        ``dataset`` (the paired-dataset interface of data/pipeline.py).
-        Per epoch: the loader's stream, grouped into ``cfg.scan_steps``
-        chunks, copied to the card ``cfg.prefetch`` batches ahead; the step
-        losses stay on the device and are read once at the epoch's end.
-        Checkpoints (``save_mi_checkpoints``) every
-        ``cfg.checkpoint_every_epochs`` epochs, after the last, and when
-        ``stop_after_epoch`` ends the run early while the schedule keeps
-        ``num_epochs``.  ``token_features`` feeds the on-disk dataset of a
-        later slice and is not read."""
-        del token_features
+        ``dataset`` (the paired-dataset interface of data/pipeline.py), by
+        default the on-disk ``CXRImageReportDataset`` of
+        ``token_features`` (a TokenFeatureSet), ``cfg.image_dir`` and
+        ``cfg.dataset_metadata``, through the crop cache
+        ``cfg.decoded_crop_cache`` names.  Per epoch: the loader's stream,
+        grouped into ``cfg.scan_steps`` chunks, copied to the card
+        ``cfg.prefetch`` batches ahead; the step losses stay on the device
+        and are read once at the epoch's end.  Checkpoints
+        (``save_mi_checkpoints``) every ``cfg.checkpoint_every_epochs``
+        epochs, after the last, and when ``stop_after_epoch`` ends the run
+        early while the schedule keeps ``num_epochs``; with
+        ``cfg.keep_checkpoints`` > 0 only that many ``mi_epoch<N>.ckpt``
+        stay.  After every dispatch a pending preemption
+        (``preempt.should_stop()``) saves ``mi_preempt.ckpt``, writes
+        ``preempted=1`` to ``mi.jsonl`` and returns.  ``resume_from``: a
+        resume checkpoint, continued at its step, mid-epoch with the
+        epoch's remaining dispatches in the uninterrupted run's order."""
         cfg = self.cfg
-        _check_manager(cfg, dataset, mesh, resume_from)
+        _check_manager(cfg, mesh)
         os.makedirs(cfg.save_directory, exist_ok=True)
         writer = MetricWriter(cfg.save_directory, name="mi",
                               log_filename="training_MI.log",
                               tensorboard=cfg.tensorboard)
         num_epochs = num_epochs or cfg.num_train_epochs
+        if dataset is None:
+            dataset = CXRImageReportDataset(
+                token_features, cfg.image_dir, cfg.dataset_metadata,
+                img_size=cfg.img_size, compact=cfg.compact_transfer,
+                crop_cache=crop_cache.from_config(cfg))
         buckets = list(cfg.seq_buckets or ()) or None
         if buckets and max(buckets) < cfg.max_seq_length:
             # a longer report would be cut to the largest bucket; a bucket
@@ -548,25 +588,34 @@ class MultiModalManager:
         logger.info("Total number of training image-report pairs: %d",
                     len(dataset))
         # under bucketing each bucket drops its own remainder: the
-        # schedule's t_total counts the batches the loader yields
+        # schedule's t_total and the resumed epoch count the batches the
+        # loader yields
         steps_per_epoch = max(1, loader.batches_per_epoch())
         txs = make_optimizers(cfg, steps_per_epoch=steps_per_epoch,
                               num_epochs=num_epochs)
-        state = create_mi_state(self.model, cfg, txs,
-                                torch.Generator().manual_seed(cfg.seed),
-                                bert_state_dict=self.bert_state_dict)
+        start_epoch, start_batch = 0, 0
+        if resume_from is None:
+            state = create_mi_state(self.model, cfg, txs,
+                                    torch.Generator().manual_seed(cfg.seed),
+                                    bert_state_dict=self.bert_state_dict)
+        else:
+            state = restore_mi_state(self.model, cfg, txs,
+                                     ckpt.load_checkpoint(resume_from))
+            start_epoch, start_batch = divmod(state.step, steps_per_epoch)
+            logger.info("Resumed from %s at step %d (epoch %d, batch %d)",
+                        resume_from, state.step, start_epoch, start_batch)
         train_step = make_mi_train_step(self.model, txs, cfg)
         scan_steps = max(1, int(cfg.scan_steps))
         multi_step = make_mi_multi_step(self.model, txs, cfg) \
             if scan_steps > 1 else None
 
         training_loss = []
-        for epoch in range(num_epochs):
+        for epoch in range(start_epoch, num_epochs):
             start = time.time()
             step_losses = []
-            stream = loader.epoch(epoch)
-            if scan_steps > 1:
-                stream = scan_chunks(stream, scan_steps)
+            stream = self._epoch_stream(loader, epoch, scan_steps,
+                                        start_batch if epoch == start_epoch
+                                        else 0)
             for batch in device_prefetch(stream, size=cfg.prefetch,
                                          device=self.device):
                 if batch["image"].dim() == 5:       # a stacked scan chunk
@@ -574,6 +623,17 @@ class MultiModalManager:
                 else:
                     state, loss = train_step(state, batch)
                 step_losses.append(loss)
+                if preempt.should_stop():
+                    # SIGTERM: the whole state, and stop; resume_from this
+                    # file continues mid-epoch
+                    path = ckpt.save_checkpoint(
+                        os.path.join(cfg.save_directory, "mi_preempt.ckpt"),
+                        mi_state_tree(state))
+                    logger.warning("preemption requested — saved %s at step "
+                                   "%d and stopping", path, state.step)
+                    writer.write(step=state.step, preempted=1)
+                    writer.close()
+                    return state
             epoch_loss = _epoch_loss(step_losses)
             training_loss.append(epoch_loss)
 
@@ -585,6 +645,8 @@ class MultiModalManager:
                 path = save_mi_checkpoints(cfg.save_directory, state,
                                            epoch + 1, self.bert_config,
                                            export_torch_bins=export_torch_bins)
+                ckpt.prune_checkpoints(cfg.save_directory, "mi_epoch",
+                                       int(cfg.keep_checkpoints))
             writer.epoch_summary(epoch + 1, epoch_loss, time.time() - start,
                                  path)
             if loader.skipped:
@@ -601,3 +663,23 @@ class MultiModalManager:
                                    "mutual_information_training.png"))
         writer.close()
         return state
+
+    def _epoch_stream(self, loader: Loader, epoch: int, scan_steps: int,
+                      steps_done: int):
+        """The epoch's dispatches: the loader's stream in ``scan_steps``
+        chunks, or after ``steps_done`` steps of a resumed epoch the rest
+        in the uninterrupted order (``resume_chunks``).  A checkpoint that
+        does not end a dispatch of this ``scan_steps`` (written with
+        another) resumes as JAX's Manager does: batches ``steps_done:`` of
+        the stream, chunked anew."""
+        if steps_done:
+            try:
+                return resume_chunks(loader, epoch, steps_done, scan_steps,
+                                     max_len=self.cfg.max_seq_length)
+            except ValueError as e:
+                logger.warning("%s: resuming at batch %d of the stream",
+                               e, steps_done)
+                stream = loader.epoch(epoch, start_batch=steps_done)
+        else:
+            stream = loader.epoch(epoch)
+        return scan_chunks(stream, scan_steps) if scan_steps > 1 else stream

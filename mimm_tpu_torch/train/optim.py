@@ -194,3 +194,23 @@ def apply_updates(params: Params, updates: Params) -> None:
     names = list(updates)
     torch._foreach_add_([params[n] for n in names],
                         [updates[n].to(params[n].dtype) for n in names])
+
+
+def state_to_tree(state) -> dict:
+    """An optimizer state as plain dicts, for the resume checkpoint:
+    ``AdamState`` -> {"count", "mu", "nu"} (moments in their own dtypes),
+    ``FrozenState`` -> {"inner", "trainable"}."""
+    if isinstance(state, FrozenState):
+        return {"inner": state_to_tree(state.inner),
+                "trainable": dict(state.trainable)}
+    return {"count": int(state.count), "mu": dict(state.mu),
+            "nu": dict(state.nu)}
+
+
+def state_from_tree(tree: dict, device) -> object:
+    """``state_to_tree``'s inverse, the tensors on ``device``."""
+    if "inner" in tree:
+        return FrozenState(state_from_tree(tree["inner"], device),
+                           dict(tree["trainable"]))
+    on = lambda d: {n: t.to(device) for n, t in d.items()}
+    return AdamState(int(tree["count"]), on(tree["mu"]), on(tree["nu"]))

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no file of mimm_tpu_torch/ or
 chip_smoke.py imports jax, flax or the JAX package (mimm_tpu, cli,
-native), importing the serving and training entry points leaves jax
-unloaded, and ``_build.build_all`` builds every CUDA source."""
+native), importing the serving, training and MI pretraining entry points
+leaves jax unloaded, and ``_build.build_all`` builds every CUDA source."""
 
 import ast
 import glob
@@ -61,6 +61,24 @@ def test_training_import_leaves_jax_unloaded():
             "mimm_tpu_torch.ops.pairwise_critic, mimm_tpu_torch.ops.dropout, "
             "mimm_tpu_torch.ops.fused_ffn, mimm_tpu_torch.ops.shallow_conv, "
             "mimm_tpu_torch.data.pipeline, mimm_tpu_torch.metrics; "
+            "print(json.dumps(sorted(m for m in sys.modules if "
+            "m.split('.')[0] in %r)))" % (FORBIDDEN,))
+    proc = subprocess.run([sys.executable, "-c", code], env=child_env(),
+                          capture_output=True, text=True, timeout=120,
+                          cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_mi_cli_import_leaves_jax_unloaded():
+    """The MI entry point and what it reads from disk: the datasets, the
+    transforms, the crop cache, the token features, the resume envelope
+    and preemption."""
+    code = ("import sys, json; import mimm_tpu_torch.cli.multi_modal, "
+            "mimm_tpu_torch.data.features, mimm_tpu_torch.data.transforms, "
+            "mimm_tpu_torch.data.crop_cache, mimm_tpu_torch.data.etl, "
+            "mimm_tpu_torch.preempt, mimm_tpu_torch.utils, "
+            "mimm_tpu_torch.checkpoint; "
             "print(json.dumps(sorted(m for m in sys.modules if "
             "m.split('.')[0] in %r)))" % (FORBIDDEN,))
     proc = subprocess.run([sys.executable, "-c", code], env=child_env(),

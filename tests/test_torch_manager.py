@@ -24,8 +24,8 @@ JAX package's (mimm_tpu/data/pipeline.py, mimm_tpu/train/mi.py:633-859).
   (measured gaps at epochs 2 and 3): the third step's optimizer updates
   skipped (6.7e-4, 3.0e-3), epoch 0's order in every epoch (3.5e-3,
   8.2e-3), t_total off by one step an epoch (1.6e-4, 6.3e-4).  The written
-  files are JAX's but its native ``mi_epoch<N>.ckpt`` (a later slice); the
-  ``.bin`` files reload ``strict=True``.
+  files are JAX's, the resume checkpoints ``mi_epoch<N>.ckpt`` included;
+  the ``.bin`` files reload ``strict=True``.
 * The port with ``pallas_stem`` on against off from one state: the same
   epoch losses to STEM_ATOL, 1e-5 / 1e-4 / 4e-4 (the canonical stem's
   convolution sums in another order than the nine shifted products, and
@@ -34,7 +34,7 @@ JAX package's (mimm_tpu/data/pipeline.py, mimm_tpu/train/mi.py:633-859).
   1.5e-4).  The planted faults leave it too (at epoch 2: 6.6e-4, 3.5e-3,
   1.4e-4).
 * Every knob of a later slice raises ``NotImplementedError`` naming its
-  queue item, before anything is written.
+  queue item by title, before anything is written.
 
 The JAX side runs in the pytest worker, the port side in a jax-free child
 (tests/torch_port_child.py).
@@ -68,7 +68,11 @@ EPOCHS, STOP_AFTER = 4, 3
 LOSS_ATOL = (1e-5, 5e-5, 1e-4)
 STEM_ATOL = (1e-5, 1e-4, 4e-4)
 FAULTS = ("skipped_update", "epoch0_order", "t_total")
-NATIVE = "mi_epoch"       # JAX's native checkpoints, a later slice's
+# a later slice's knob -> the title of its ROADMAP queue A item
+KNOBS = {"mesh": "parallel/mesh.py and parallel/pipeline.py",
+         "checkpoint_format": "parallel/mesh.py and parallel/pipeline.py",
+         "profile_steps": "profiling.py and tbevents.py",
+         "tensorboard": "profiling.py and tbevents.py"}
 
 
 class PairedDataset:
@@ -176,8 +180,7 @@ def results(tmp_path_factory):
                       mesh=mesh_lib.make_mesh({"data": 1}),
                       num_epochs=EPOCHS, stop_after_epoch=STOP_AFTER)
     want = {"losses": _epoch_losses(save), "steps": int(state.step),
-            "files": sorted(f for f in os.listdir(save)
-                            if not f.startswith(NATIVE)),
+            "files": sorted(os.listdir(save)),
             "counts": counts}
     np.savez(os.path.join(job, "in.npz"), **arrays)
     got, meta = run_child(__file__, job, timeout=600)
@@ -238,10 +241,12 @@ def test_manager_loss_limits_catch_faults(results, fault):
 
 def test_manager_writes_jax_files_and_reloads_strict(results):
     """A checkpoint every 2 epochs and at the stop after 3: epochs 2 and 3,
-    not 1 and not 4 (checkpoint_every_epochs, stop_after_epoch)."""
+    not 1 and not 4 (checkpoint_every_epochs, stop_after_epoch), the
+    resume checkpoints beside the ``.bin`` files."""
     want, _, _, meta = results
     assert meta["stem_on"]["files"] == want["files"]
     assert "pytorch_model_epoch2.bin" in want["files"]
+    assert "mi_epoch3.ckpt" in want["files"]
     assert "pytorch_model_epoch3.bin" in want["files"]
     assert "pytorch_model_epoch1.bin" not in want["files"]
     assert meta["stem_on"]["strict_reload"] is True
@@ -262,14 +267,11 @@ def test_run_logging_moves_to_each_run_file(results):
     assert results[3]["run_logs"] == [["run one"], ["run two"]]
 
 
-@pytest.mark.parametrize("knob", ["dataset", "mesh", "resume_from",
-                                  "auto_resume", "keep_checkpoints",
-                                  "checkpoint_format", "profile_steps",
-                                  "tensorboard"])
+@pytest.mark.parametrize("knob", list(KNOBS))
 def test_later_slice_knobs_raise(results, knob):
     msg, wrote = results[3]["raises"][knob]
-    assert msg.startswith("NotImplementedError") and "queue A, item" in msg, \
-        msg
+    assert msg.startswith("NotImplementedError") and "queue A" in msg \
+        and KNOBS[knob] in msg, msg
     assert wrote == [], wrote
 
 
@@ -385,14 +387,10 @@ def _child(job):
         save = os.path.join(job, f"raises_{knob}")
         cfg = TrainingConfig(save_directory=save, **CFG)
         kw = {"dataset": FakePairedDataset(n=4, img=256)}
-        if knob == "dataset":
-            kw["dataset"] = None
-        elif knob in ("mesh", "resume_from"):
-            kw[knob] = object() if knob == "mesh" else os.path.join(save, "x")
+        if knob == "mesh":
+            kw[knob] = object()
         else:
             cfg = cfg.replace(**{
-                "auto_resume": {"resume_from": "auto"},
-                "keep_checkpoints": {"keep_checkpoints": 2},
                 "checkpoint_format": {"checkpoint_format": "orbax"},
                 "profile_steps": {"profile_steps": 2},
                 "tensorboard": {"tensorboard": True}}[knob])
@@ -414,9 +412,7 @@ def _child(job):
     meta["run_logs"] = [[line.split(" ", 4)[-1].strip() for line in open(p)]
                         for p in logs]
 
-    meta["raises"] = {k: refused(k) for k in (
-        "dataset", "mesh", "resume_from", "auto_resume", "keep_checkpoints",
-        "checkpoint_format", "profile_steps", "tensorboard")}
+    meta["raises"] = {k: refused(k) for k in KNOBS}
     np.savez(os.path.join(job, "out.npz"), **out)
     with open(os.path.join(job, "out.json"), "w") as f:
         json.dump(meta, f)

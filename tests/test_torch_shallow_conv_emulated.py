@@ -132,9 +132,7 @@ def _child(job):
         for case, (b, h, w, xt, gt) in CASES.items():
             gen = torch.Generator().manual_seed(h * w)
             xdt, gdt = getattr(torch, xt), getattr(torch, gt)
-            # (B, 1, H, W), the same memory as the (B, H, W, 1) image: the
-            # wrappers read a (B, 1, W, 1) image as (B, W, 1)
-            x = torch.rand(b, 1, h, w, generator=gen).to(xdt)
+            x = torch.rand(b, h, w, 1, generator=gen).to(xdt)
             weight = torch.randn(8, 1, 3, 3, generator=gen) * 0.5
             dy = torch.randn(b, 8, h, w, generator=gen).to(gdt)
             dw, want_dw = sc.dw_kernel(x, dy), sc.dw_plain(x, dy)

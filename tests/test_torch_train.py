@@ -308,10 +308,12 @@ def test_unported_knobs_raise(results):
 
 def test_checkpoints_reload_strict(results):
     meta = results[2]
-    assert meta["saved"] == ["config.json", "pytorch_MI_image_model.bin",
+    assert meta["saved"] == ["config.json", "mi_epoch1.ckpt",
+                             "pytorch_MI_image_model.bin",
                              "pytorch_MI_text_model.bin",
                              "pytorch_model_epoch1.bin"]
     assert meta["reload_equal"] is True
+    assert meta["envelope_equal"] is True
 
 
 def _error_of(fn):
@@ -442,6 +444,11 @@ def _child(job):
     meta["reload_equal"] = all(
         torch.equal(a, b) for a, b in zip(fresh.state_dict().values(),
                                           model.state_dict().values()))
+    tree = ckpt.load_checkpoint(os.path.join(save, "mi_epoch1.ckpt"))
+    meta["envelope_equal"] = tree["step"] == state.step and all(
+        torch.equal(tree[tower][k], v) for tower in ("image_model",
+                                                     "text_model")
+        for k, v in getattr(model, tower).state_dict().items())
     np.savez(os.path.join(job, "out.npz"), **out)
     with open(os.path.join(job, "out.json"), "w") as f:
         json.dump(meta, f)
