@@ -117,11 +117,27 @@ no arguments.  Phases:
    full-resolution CXR's geometry (no image file: every read must be a
    hit).  Run A trains uninterrupted; run B gets a real SIGTERM after step
    5 of epoch 1 and checkpoints; run C resumes it (``resume_from`` "auto")
-   and must end at A's step count on A's bits (cuDNN deterministic).  The
-   epoch's split between the loader threads' reads, the pinned copies, the
-   steps and the saves, the pairs/s of A's epochs, the hits, the pruned
+   and must end at A's step count on A's bits in every tensor (cuDNN
+   deterministic; BERT's embedding lookups sum their gradients in a fixed
+   order, and two backward calls of the lookup at the token-type shape
+   must give the same bits without the deterministic flag).  The epoch's
+   split between the loader threads' reads, the pinned copies, the steps
+   and the saves, the pairs/s of A's epochs, the hits, the pruned
    checkpoints and a strict reload of the ``.bin`` files;
-13. the ``kernels`` JSON line, the card line, and as the last line
+13. the autoencoder baseline through its entry point,
+   ``mimm_tpu_torch.cli.uni_modal.main``, at full width (ResNetAE 256²,
+   6 levels, 2 residual blocks, z_dim 192, bottleneck 768; production
+   preset, B=64, 2 epochs, ``keep_checkpoints`` 1, 4 loader threads) over
+   1024 crop-cache windows written here (every read a hit): runs A, B
+   (SIGTERM after step 5) and C (resumed), C on A's bits in every
+   tensor; no port kernel launched on the path (JAX's AE reaches no
+   Pallas kernel); the ``.bin`` files reloaded strict with A's eval
+   embedding; images/s per epoch, the split of A's epochs, seconds a
+   save; the B=64 step's ms, peak and one profiled step; B=256 in 4
+   chunks within 1.5 x its peak; one f32 B=8 step against float64 under
+   phase 5's |Δloss| and largest |Δ|, and within 1.5 x the shares of
+   elements moved and flipped that JAX's own f32 step shows;
+14. the ``kernels`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a card it exits before
@@ -132,6 +148,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import io
 import json
 import math
@@ -170,6 +187,7 @@ from mimm_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from mimm_tpu_torch.ops import fused_ffn as ff  # noqa: E402
 from mimm_tpu_torch.ops import pairwise_critic as pc  # noqa: E402
 from mimm_tpu_torch.ops import shallow_conv as sc  # noqa: E402
+from mimm_tpu_torch.ops.embedding import embedding_lookup  # noqa: E402
 from mimm_tpu_torch.ops.image_norm import device_normalize  # noqa: E402
 from mimm_tpu_torch.ops.philox import attention_keep_mask  # noqa: E402
 from mimm_tpu_torch.serve import InferenceSession  # noqa: E402
@@ -2749,6 +2767,32 @@ CXR_SHAPE = (2544, 3056)
 SPECIAL_TOKENS = ("[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]")
 
 
+def window_pool(root: str, img_size: int, rng) -> list:
+    """CLI_WINDOWS crop-cache windows (uint8) as ``support_window`` cuts
+    them from a CXR_SHAPE image, written under ``root``; their paths."""
+    from mimm_tpu_torch.data import crop_cache
+
+    h, w = CXR_SHAPE
+    oy, ox, wh, ww = crop_cache.support_window(h, w, img_size)
+    pool = []
+    for k in range(CLI_WINDOWS):
+        path = os.path.join(root, f"window{k}.npz")
+        crop_cache.write(path, rng.integers(0, 256, (wh, ww), dtype=np.uint8),
+                         (oy, ox, h, w))
+        pool.append(path)
+    return pool
+
+
+def link_window(window: str, cache_dir: str, img_id: str,
+                img_size: int) -> None:
+    """``window`` as the crop-cache entry of ``img_id`` (a hard link)."""
+    entry = os.path.join(cache_dir, f"{img_id}.w{img_size}.npz")
+    try:
+        os.link(window, entry)
+    except OSError:
+        shutil.copyfile(window, entry)
+
+
 def write_cli_corpus(root: str, pairs: int, long: int, vocab_size: int,
                      img_size: int, seed: int) -> dict:
     """The files ``train_mutual_information`` reads, from numpy (no image
@@ -2760,8 +2804,6 @@ def write_cli_corpus(root: str, pairs: int, long: int, vocab_size: int,
     lengths (in tokens, [CLS] and [SEP] included) follow BUCKET_MIX over
     PRODUCTION_SEQ_BUCKETS, uniform within a bucket; ``long`` more fall in
     each of the two longest buckets.  Each report word is one token."""
-    from mimm_tpu_torch.data import crop_cache
-
     rng = np.random.default_rng(seed)
     paths = {k: os.path.join(root, k)
              for k in ("bert", "text", "cache", "images")}
@@ -2778,23 +2820,12 @@ def write_cli_corpus(root: str, pairs: int, long: int, vocab_size: int,
         np.full(long, len(share) - 2), np.full(long, len(share) - 1)])
     lengths = [int(rng.integers(max(3, bounds[b] + 1), bounds[b + 1] + 1))
                for b in bucket]
-    h, w = CXR_SHAPE
-    oy, ox, wh, ww = crop_cache.support_window(h, w, img_size)
-    pool = []
-    for k in range(CLI_WINDOWS):
-        path = os.path.join(root, f"window{k}.npz")
-        crop_cache.write(path, rng.integers(0, 256, (wh, ww), dtype=np.uint8),
-                         (oy, ox, h, w))
-        pool.append(path)
+    pool = window_pool(root, img_size, rng)
     rows, reports = [], []
     for i, length in enumerate(lengths):
         study = 50000000 + i
         img_id = f"p{10000000 + i}_s{study}_{i:08x}.jpg"
-        entry = os.path.join(paths["cache"], f"{img_id}.w{img_size}.npz")
-        try:
-            os.link(pool[i % CLI_WINDOWS], entry)
-        except OSError:
-            shutil.copyfile(pool[i % CLI_WINDOWS], entry)
+        link_window(pool[i % CLI_WINDOWS], paths["cache"], img_id, img_size)
         words = rng.integers(len(SPECIAL_TOKENS), vocab_size, length - 2)
         reports.append(f"{i}\t-1\t{study}\t{img_id}\t"
                        + " ".join(vocab[j] for j in words))
@@ -2812,12 +2843,9 @@ class _RunProbe:
     each step's host seconds, text length and loss (kept on the device
     until the end); the thread-seconds of the dataset's reads; the seconds
     of the pinned copies and of the checkpoint saves; the crop cache the
-    Manager built; after each step a copy of the text tower's token-type
-    embedding table, the tensor any gradient difference anywhere in the
-    text tower reaches (its row 0 sums every position's gradient), to find
-    the first step where two runs part.  ``stop_at``: after that step, a
-    real SIGTERM to this process (the entry point's preemption handler
-    takes it).  Installs its wrappers while it is entered."""
+    Manager built.  ``stop_at``: after that step, a real SIGTERM to this
+    process (the entry point's preemption handler takes it).  Installs its
+    wrappers while it is entered."""
 
     def __init__(self):
         from mimm_tpu_torch.data import crop_cache, pipeline
@@ -2826,7 +2854,7 @@ class _RunProbe:
         self.reset()
 
     def reset(self):
-        self.steps, self.lengths, self.losses, self.marks = [], [], [], []
+        self.steps, self.lengths, self.losses = [], [], []
         self.load_s, self.copy_s, self.save_s, self.envelope_s = \
             0.0, 0.0, 0.0, 0.0
         self.caches = []
@@ -2861,9 +2889,6 @@ class _RunProbe:
                 probe.steps.append(time.perf_counter() - t0)
                 probe.lengths.append(int(batch["txt_ids"].shape[-1]))
                 probe.losses.append(loss)
-                probe.marks.append(state.model.text_model.bert.embeddings
-                                   .token_type_embeddings.weight.detach()
-                                   .clone())
                 if state.step == probe.stop_at:
                     os.kill(os.getpid(), signal.SIGTERM)
                 return state, loss
@@ -2921,129 +2946,29 @@ def _flat_tree(state) -> dict:
 
 
 def embedding_repeat(device, batch=BATCH, seq=SEQ, width=768,
-                     dtype=torch.float32, deterministic=False) -> float:
-    """The largest |difference| between two backward calls of
-    ``F.embedding`` on the same inputs at the token-type lookup's shape in a
-    step (every index 0: one row gathers B·L gradients); float32 shows a
-    change of summation order that bf16 rounds away unless a sum lies near
-    a rounding boundary.  ``deterministic``: under
-    torch.use_deterministic_algorithms."""
+                     dtype=torch.float32, lookup=embedding_lookup) -> float:
+    """The largest |difference| between two backward calls of ``lookup``
+    on the same inputs at the token-type lookup's shape in a step (every
+    index 0: one row gathers B·L gradients), with
+    torch.use_deterministic_algorithms off."""
+    if torch.are_deterministic_algorithms_enabled():
+        raise AssertionError("embedding_repeat reads the lookup with "
+                             "torch.use_deterministic_algorithms off")
     gen = torch.Generator(device=device).manual_seed(SEED + 29)
     ids = torch.zeros(batch, seq, dtype=torch.long, device=device)
     weight = torch.randn(2, width, generator=gen, device=device)
     dy = torch.randn(batch, seq, width, generator=gen, device=device) \
         .to(dtype)
-    before = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(deterministic, warn_only=True)
-    try:
-        grads = []
-        for _ in range(2):
-            w = weight.to(dtype).requires_grad_()
-            (g,) = torch.autograd.grad(F.embedding(ids, w), (w,), dy)
-            grads.append(g)
-    finally:
-        torch.use_deterministic_algorithms(before)
+    grads = []
+    for _ in range(2):
+        w = weight.to(dtype).requires_grad_()
+        (g,) = torch.autograd.grad(lookup(ids, w), (w,), dy)
+        grads.append(g)
     return (grads[0].float() - grads[1].float()).abs().max().item()
 
 
-def corpus_batches(cfg, count: int, device) -> list:
-    """The first ``count`` batches of epoch 0 as the Manager's loader
-    composes them from ``cfg``'s corpus (its token cache and crop cache), on
-    ``device``."""
-    from mimm_tpu_torch.data import crop_cache, pipeline
-    from mimm_tpu_torch.data.features import TokenFeatureSet
-
-    tokens = TokenFeatureSet.load(os.path.join(
-        cfg.text_data_dir,
-        f"cachedfeatures_train_seqlen-{cfg.max_seq_length}.npz"))
-    data = pipeline.CXRImageReportDataset(
-        tokens, cfg.image_dir, cfg.dataset_metadata, img_size=cfg.img_size,
-        compact=cfg.compact_transfer, crop_cache=crop_cache.from_config(cfg))
-    loader = pipeline.Loader(data, cfg.batch_size, seed=cfg.seed,
-                             bucket_lengths=cfg.seq_buckets)
-    out = []
-    for b in loader.epoch(0):
-        out.append(pipeline._to_device(b, torch.device(device)))
-        if len(out) == count:
-            return out
-    return out
-
-
-def step_repeat(device, cfg, batches) -> None:
-    """Train steps on ``batches`` from one state, twice (the state restored
-    through the resume envelope): whether the gradient reaching each of
-    BERT's three embedding lookups (word, position, token type) is the same
-    in both, which tensors of the state differ at the end, and whether the
-    token-type lookup's backward alone gives the same bits twice on the
-    captured gradient."""
-    model = mi.build_joint_model(cfg, mi.load_bert_config(cfg), device=device)
-    txs = mi.make_optimizers(cfg, 15)
-    state = mi.create_mi_state(model, cfg, txs,
-                               torch.Generator().manual_seed(SEED))
-    path = ckpt.save_checkpoint(os.path.join(cfg.save_directory, "s.ckpt"),
-                                mi.mi_state_tree(state))
-    step = mi.make_mi_train_step(model, txs, cfg)
-    seen = []
-
-    class CapturingF:
-        """torch.nn.functional, with each embedding output's gradient
-        kept."""
-
-        def __getattr__(self, name):
-            return getattr(F, name)
-
-        @staticmethod
-        def embedding(ids, weight):
-            out = F.embedding(ids, weight)
-            if out.requires_grad:
-                seen.append((ids, weight.detach()))
-                slot = len(seen) - 1
-                out.register_hook(lambda g: grads.__setitem__(slot, g))
-            return out
-
-    runs = []
-    real_f = bert_model.F
-    bert_model.F = CapturingF()
-    try:
-        for _ in range(2):
-            seen.clear()
-            grads = {}
-            state = mi.restore_mi_state(model, cfg, txs,
-                                        ckpt.load_checkpoint(path))
-            for b in batches:
-                state, _ = step(state, b)
-            _sync(device)
-            runs.append((dict(grads), list(seen), _flat_tree(state)))
-    finally:
-        bert_model.F = real_f
-    (g0, seen0, end0), (g1, _, end1) = runs
-    same_dy = [bool(torch.equal(g0[i], g1[i])) for i in sorted(g0)]
-    differ = {k: (end0[k].float() - end1[k].float()).abs().max().item()
-              for k in end0 if torch.is_tensor(end0[k])
-              and not torch.equal(end0[k], end1[k])}
-    print(f"  {len(batches)} steps on the corpus's first batches (L "
-          f"{[b['txt_ids'].shape[1] for b in batches]}) from one state, "
-          f"twice: the gradient into each embedding lookup (word, position, "
-          f"token type per step) the same: {same_dy}; {len(differ)} of "
-          f"{len(end0)} state tensors differ"
-          + (": " + ", ".join(f"{k} {v:.2e}" for k, v in differ.items())
-             if differ else ""))
-    alone = []
-    for slot in sorted(g0)[2::3]:            # the token-type lookups
-        ids, weight = seen0[slot]
-        outs = []
-        for _ in range(2):
-            w = weight.clone().requires_grad_()
-            (g,) = torch.autograd.grad(F.embedding(ids, w), (w,), g0[slot])
-            outs.append(g)
-        alone.append(bool(torch.equal(*outs)))
-    print(f"  the token-type lookup's backward alone on the captured "
-          f"gradients, the same bits twice: {alone}")
-    del state, model
-
-
-def _jsonl(save: str) -> list:
-    with open(os.path.join(save, "mi.jsonl")) as f:
+def _jsonl(save: str, name: str = "mi") -> list:
+    with open(os.path.join(save, f"{name}.jsonl")) as f:
         return [json.loads(line) for line in f]
 
 
@@ -3094,8 +3019,6 @@ def drive_mi_cli(root: str, device, bert_kw=BERT_BASE, pairs=CLI_PAIRS,
                         **ff.LAUNCHES}          # ... and ends here
             recs = [r for r in _jsonl(save_a) if "epoch_loss" in r]
             steps, hits = state.step, probe.hits()
-            a_losses = [float(x) for x in torch.stack(probe.losses).cpu()]
-            a_marks, a_lengths = probe.marks, list(probe.lengths)
             split = {"load": probe.load_s, "copy": probe.copy_s,
                      "steps": sum(probe.steps), "save": probe.save_s,
                      "envelope": probe.envelope_s}
@@ -3106,7 +3029,6 @@ def drive_mi_cli(root: str, device, bert_kw=BERT_BASE, pairs=CLI_PAIRS,
             check_reload(save_a, state, bc, epoch=CLI_EPOCHS)
             files_a = sorted(os.listdir(save_a))
             want = _flat_tree(state)
-            want_snap = _snapshot(state)
             del state
             if cuda:
                 torch.cuda.empty_cache()
@@ -3117,7 +3039,6 @@ def drive_mi_cli(root: str, device, bert_kw=BERT_BASE, pairs=CLI_PAIRS,
             _, state = train_mutual_information(cfg_for(save_bc), device)
             probe.stop_at = None
             b_step, b_hits = state.step, probe.hits()
-            b_marks = probe.marks
             preempted = any(r.get("preempted") == 1 for r in _jsonl(save_bc))
             del state
             preempt.clear()   # a new process would start without the flag
@@ -3127,10 +3048,7 @@ def drive_mi_cli(root: str, device, bert_kw=BERT_BASE, pairs=CLI_PAIRS,
                 cfg_for(save_bc, resume_from="auto"), device)
             _sync(device)
             c_hits = probe.hits()
-            c_losses = [float(x) for x in torch.stack(probe.losses).cpu()]
-            c_marks = probe.marks
             got = _flat_tree(state)
-            got_snap = _snapshot(state)
             c_step = state.step
             files_c = sorted(os.listdir(save_bc))
             del state
@@ -3171,42 +3089,24 @@ def drive_mi_cli(root: str, device, bert_kw=BERT_BASE, pairs=CLI_PAIRS,
           f"differ" + (f" ({differ[:3]})" if differ else ", bit for bit"))
     bad = []
     if differ:
-        # a library call that is not deterministic: where it starts, and
-        # whether the end is held to phase 5's train-step limits
-        first = next((b_step + i + 1 for i, (x, y) in enumerate(
-            zip(a_marks[b_step:], c_marks)) if not torch.equal(x, y)), None)
-        first_b = next((i + 1 for i, (x, y) in enumerate(
-            zip(a_marks, b_marks)) if not torch.equal(x, y)), None)
-        print(f"  run B against A, steps 1-{b_step}: the token-type table "
-              f"first differs after step {first_b}")
-        if first:
-            rows = (a_marks[first - 1] - c_marks[first - 1 - b_step]).abs() \
-                .amax(dim=1)
-            print(f"  after step {first}, max |diff| of each token-type row: "
-                  + ", ".join(f"{x:.2e}" for x in rows.tolist()))
-        first_loss = next((b_step + i + 1 for i, (x, y) in enumerate(
-            zip(a_losses[b_step:], c_losses)) if x != y), None)
-        out = _step_diff((a_losses[-1], want_snap), (c_losses[-1], got_snap))
-        print(f"  first step after which the token-type table differs: "
-              f"{first} (L={a_lengths[first - 1] if first else None}); "
-              f"whose loss differs: "
-              f"{first_loss}; at the end {_diff_line(out)}")
-        seq = a_lengths[first - 1] if first else SEQ
-        print(f"  F.embedding's backward at ({batch}, {seq}), every index 0, "
-              f"two calls on the same inputs, max |diff|: float32 "
-              f"{embedding_repeat(device, batch, seq):.2e}, bf16 "
-              f"{embedding_repeat(device, batch, seq, dtype=torch.bfloat16):.2e}"
-              f"; under torch.use_deterministic_algorithms: float32 "
-              f"{embedding_repeat(device, batch, seq, deterministic=True):.2e}")
-        torch.backends.cudnn.deterministic = True     # as the runs had it
-        try:
-            rcfg = cfg_for(os.path.join(root, "repeat"))
-            step_repeat(device, rcfg, corpus_batches(rcfg, 3, device))
-        finally:
-            torch.backends.cudnn.deterministic = deterministic
-        if not all(v[0] <= STEP_MAX_ABS and v[1] <= STEP_FLIP_SHARE
-                   for g, v in out.items() if g not in ("loss_diff", "loss")):
-            bad.append(f"C differs from A past the step limits: {out}")
+        bad.append(f"run C differs from run A in {len(differ)} tensors, the "
+                   f"first {differ[0]}")
+    # BERT's lookups sum their gradients in a fixed order (ops/embedding.py):
+    # two backward calls at the token-type lookup's longest shape here give
+    # the same bits without the deterministic flag, where F.embedding's
+    # float32 sums do not
+    seq = max(probe.lengths or [SEQ])
+    repeat = {name: embedding_repeat(device, batch, seq, dtype=dt)
+              for name, dt in (("float32", torch.float32),
+                               ("bfloat16", torch.bfloat16))}
+    print(f"  the embedding lookup's backward at ({batch}, {seq}), every index "
+          f"0, two calls on the same inputs, max |diff|: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in repeat.items())
+          + f" (F.embedding float32 "
+          f"{embedding_repeat(device, batch, seq, lookup=F.embedding):.2e})")
+    if any(repeat.values()):
+        bad.append(f"the embedding lookup's backward is not the same bits "
+                   f"twice: {repeat}")
     if cuda:
         layers = bert_kw["num_hidden_layers"]
         want_launches = {
@@ -3238,6 +3138,422 @@ def drive_mi_cli(root: str, device, bert_kw=BERT_BASE, pairs=CLI_PAIRS,
     return {"launches": launches, "steps": steps, "long_steps": long_steps,
             "seconds": seconds, "epoch_seconds": epoch_s, "split": split,
             "hits": total_hits, "bit_equal": not differ}
+
+
+# ---- phase 13: the autoencoder through its entry point ---------------------
+
+AE_IMAGES = 1024
+AE_EPOCHS = 2
+AE_STOP_STEP = 5       # run B's SIGTERM: inside epoch 1 (16 steps)
+AE_TIMED = 3
+AE_CHUNKED = (256, 4)  # the chunked step: B and grad_cache_chunks
+AE_CHUNK_PEAK = 1.5    # its peak against the B=64 step's, at most
+AE_CMP_BATCH = 8       # the float32 step held against float64
+# JAX's own float32 AE step against its float64 step at this configuration
+# (full width, B=8, Adam at 1e-4, this batch; tests/jax_ae_f32_shares.py
+# on the CPU): per group, the share of elements more than 1e-6 apart and
+# the share whose step took the other sign.  Phase 5's share of 1e-3 does
+# not hold for the AE's reference itself: 0.29-1.5 % of each group's
+# elements move more than 1e-6 and 0.03-0.12 % flip their first Adam step.
+# The port is held to AE_SHARE_MARGIN times the reference's shares, and to
+# phase 5's |Δloss| and largest |Δ|.
+JAX_AE_F32 = {"encoder": (1.518e-2, 1.203e-3), "decoder": (2.864e-3, 3.457e-4),
+              "fc": (9.341e-3, 1.089e-3)}
+AE_SHARE_MARGIN = 1.5
+
+
+def write_image_corpus(root: str, images: int, img_size: int,
+                       seed: int) -> dict:
+    """The files ``train_auto_encoder`` reads, from numpy (no image codec):
+    ``metadata.csv`` (``mimic_id``) and one crop-cache entry per image, a
+    window of ``window_pool``; ``images/`` stays empty, so every read must
+    be a hit."""
+    rng = np.random.default_rng(seed)
+    paths = {k: os.path.join(root, k) for k in ("cache", "images")}
+    for p in paths.values():
+        os.makedirs(p, exist_ok=True)
+    pool = window_pool(root, img_size, rng)
+    rows = [f"p{20000000 + i}_s{60000000 + i}_{i:08x}.jpg"
+            for i in range(images)]
+    for i, img_id in enumerate(rows):
+        link_window(pool[i % CLI_WINDOWS], paths["cache"], img_id, img_size)
+    paths["metadata"] = os.path.join(root, "metadata.csv")
+    with open(paths["metadata"], "w") as f:
+        f.write("mimic_id\n" + "".join(f"{r}\n" for r in rows))
+    return paths
+
+
+class _AEProbe:
+    """What one ``train_auto_encoder`` call does, read from outside: each
+    step's host seconds and loss (kept on the device), the thread-seconds
+    of the dataset's reads, the seconds of each epoch save, the crop cache
+    it built.  ``stop_at``: after that step, a real SIGTERM to this process
+    (the entry point's preemption handler takes it).  Installs its
+    wrappers while it is entered."""
+
+    def __init__(self):
+        self.stop_at = None
+        self.reset()
+
+    def reset(self):
+        self.steps, self.losses, self.saves, self.caches = [], [], [], []
+        self.load_s = 0.0
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        import signal
+
+        from mimm_tpu_torch.data import crop_cache, pipeline
+        from mimm_tpu_torch.train import ae
+
+        self._mods = ae, crop_cache, pipeline
+        self._real = (ae.make_ae_train_step, ae.save_ae_checkpoint,
+                      pipeline.CXRImageDataset.load, crop_cache.from_config)
+        make_step, save, load, from_config = self._real
+        probe = self
+
+        def make(*a, **kw):
+            step = make_step(*a, **kw)
+
+            def run(state, images):
+                t0 = time.perf_counter()
+                state, loss = step(state, images)
+                probe.steps.append(time.perf_counter() - t0)
+                probe.losses.append(loss)
+                if state.step == probe.stop_at:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                return state, loss
+            return run
+
+        def timed_save(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return save(*a, **kw)
+            finally:
+                probe.saves.append(time.perf_counter() - t0)
+
+        def timed_load(ds, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return load(ds, *a, **kw)
+            finally:
+                with probe._lock:
+                    probe.load_s += time.perf_counter() - t0
+
+        def keep_cache(cfg):
+            cache = from_config(cfg)
+            probe.caches.append(cache)
+            return cache
+
+        ae.make_ae_train_step, ae.save_ae_checkpoint = make, timed_save
+        pipeline.CXRImageDataset.load = timed_load
+        crop_cache.from_config = keep_cache
+        return self
+
+    def __exit__(self, *exc):
+        ae, crop_cache, pipeline = self._mods
+        (ae.make_ae_train_step, ae.save_ae_checkpoint,
+         pipeline.CXRImageDataset.load, crop_cache.from_config) = self._real
+
+    def hits(self):
+        return (sum(c.hits for c in self.caches),
+                sum(c.misses for c in self.caches))
+
+
+def _ae_flat(state) -> dict:
+    """Every tensor and count of an AE state (its resume tree), on the
+    CPU: parameters, running statistics, moments, counts."""
+    from mimm_tpu_torch.train import ae
+
+    tree = ae.ae_state_tree(state)
+    out = {f"model/{k}": v.detach().cpu().clone()
+           for k, v in tree["model"].items()}
+    for part in ("mu", "nu"):
+        out.update({f"opt/{part}/{k}": v.detach().cpu().clone()
+                    for k, v in tree["opt_state"][part].items()})
+    out["opt/count"] = tree["opt_state"]["count"]
+    out["step"] = tree["step"]
+    return out
+
+
+def _ae_images(rng, batch: int, device) -> torch.Tensor:
+    """A compact batch: uint8 (B, 256, 256, 1) crops on ``device``."""
+    return torch.from_numpy(rng.integers(0, 256, (batch, 256, 256, 1),
+                                         dtype=np.uint8)).to(device)
+
+
+def ae_step_numbers(device, batch: int, card: str) -> dict:
+    """The production AE step at full width from seeded random weights:
+    ms per step (AE_TIMED after a warm-up, host clock ending in a
+    synchronize), its peak memory, one step under torch.profiler; then
+    the chunked step, AE_CHUNKED, one warm-up and 2 timed, whose peak must
+    stay within AE_CHUNK_PEAK of the B=64 step's and whose loss must be
+    finite."""
+    from mimm_tpu_torch.train import ae
+
+    cuda = torch.device(device).type == "cuda"
+    cfg = TrainingConfig.production()
+    model = ae.build_ae_model(cfg, device)
+    state = ae.create_ae_state(model, cfg, torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 33)
+    data = _ae_images(rng, batch, device)
+    step = ae.make_ae_train_step(model, ae._ae_tx(cfg))
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    state, _ = step(state, data)
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(AE_TIMED):
+        state, loss = step(state, data)
+    _sync(device)
+    ms = (time.perf_counter() - t0) / AE_TIMED * 1e3
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    print(f"  B={batch} AE step: {ms:.3f} ms ({batch / ms * 1e3:.1f} images/s, "
+          f"{AE_TIMED} after 1 warm-up, host clock), peak "
+          + (f"{peak / 2 ** 30:.2f} GiB" if cuda else "not measured")
+          + f", loss {loss.item():.6f}  [{card}]")
+    if cuda:
+        profile_call(f"AE step B={batch} (one step; wall: the timed steps' "
+                     f"mean)", lambda: step(state, data), ms, card)
+    big, chunks = AE_CHUNKED
+    chunked = ae.make_ae_train_step(model, ae._ae_tx(cfg), chunks=chunks)
+    data = _ae_images(rng, big, device)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    state, _ = chunked(state, data)
+    _sync(device)
+    t0 = time.perf_counter()
+    losses = [chunked(state, data)[1] for _ in range(2)]
+    _sync(device)
+    ms_c = (time.perf_counter() - t0) / 2 * 1e3
+    peak_c = torch.cuda.max_memory_allocated() if cuda else None
+    finite = all(math.isfinite(x.item()) for x in losses)
+    print(f"  B={big} in {chunks} chunks: {ms_c:.3f} ms a step "
+          f"({big / ms_c * 1e3:.1f} images/s, 2 after 1 warm-up), peak "
+          + (f"{peak_c / 2 ** 30:.2f} GiB = {peak_c / peak:.2f} x the "
+             f"B={batch} step's" if cuda else "not measured")
+          + f", losses {[round(x.item(), 6) for x in losses]}  [{card}]")
+    if not finite or (cuda and peak_c > AE_CHUNK_PEAK * peak):
+        raise AssertionError(f"chunked AE step: losses {losses}, peak "
+                             f"{peak_c} against {AE_CHUNK_PEAK} x {peak}")
+    del state, model
+    return {"ms": ms, "peak": peak, "chunked_ms": ms_c, "chunked_peak": peak_c}
+
+
+def ae_f32_against_f64(device, card: str, batch: int = AE_CMP_BATCH) -> dict:
+    """One float32 step of the full-width AE (float32 moments, TF32 as the
+    caller set it) against the same step in float64 from one state, per
+    group (encoder, decoder, fc1/fc2): the largest |Δ|, the share of
+    elements more than 1e-6 apart and the share whose step took the other
+    sign.  Held: |Δloss| and the largest |Δ| to phase 5's limits, the two
+    shares to AE_SHARE_MARGIN times JAX's own (JAX_AE_F32)."""
+    from mimm_tpu_torch.train import ae
+
+    cfg = TrainingConfig(compute_dtype="float32")
+    m32 = ae.build_ae_model(cfg, device)
+    s32 = ae.create_ae_state(m32, cfg, torch.Generator().manual_seed(SEED + 1))
+    m64 = copy.deepcopy(m32).double()
+    m64.dtype = torch.float64
+    s64 = ae.create_ae_state(m64, cfg, None, weights=m64.state_dict())
+    before = {n: p.detach().double().cpu() for n, p in m32.named_parameters()}
+    data = _ae_images(np.random.default_rng(SEED + 35), batch, device)
+    losses, after = [], []
+    for model, state in ((m32, s32), (m64, s64)):
+        _, loss = ae.make_ae_train_step(model, ae._ae_tx(cfg))(state, data)
+        losses.append(loss.item())
+        after.append({n: p.detach().double().cpu()
+                      for n, p in model.named_parameters()})
+    out = {"loss_diff": abs(losses[0] - losses[1])}
+    bad = [] if out["loss_diff"] <= STEP_LOSS_ATOL else ["loss"]
+    for group, (share_jax, flip_jax) in JAX_AE_F32.items():
+        names = [n for n in before if n.startswith(group)]
+        d = torch.cat([(after[0][n] - after[1][n]).abs().reshape(-1)
+                       for n in names])
+        flips = torch.cat([(torch.sign(after[0][n] - before[n])
+                            != torch.sign(after[1][n] - before[n])).reshape(-1)
+                           for n in names])
+        out[group] = (d.max().item(), (d > 1e-6).double().mean().item(),
+                      flips.double().mean().item())
+        if out[group][0] > STEP_MAX_ABS \
+                or out[group][1] > AE_SHARE_MARGIN * share_jax \
+                or out[group][2] > AE_SHARE_MARGIN * flip_jax:
+            bad.append(group)
+    print(f"  f32 B={batch} AE step against float64: loss {losses[0]:.9e} vs "
+          f"{losses[1]:.9e} (|diff| {out['loss_diff']:.2e}); max |dparam|, "
+          f"share > 1e-6, share of flipped steps (JAX's own): "
+          + ", ".join(f"{g} {v[0]:.2e}, {v[1]:.2e} ({JAX_AE_F32[g][0]:.2e}), "
+                      f"{v[2]:.2e} ({JAX_AE_F32[g][1]:.2e})"
+                      for g, v in out.items() if g != "loss_diff")
+          + f"  [{card}]")
+    if bad:
+        raise AssertionError(f"the f32 AE step is past its limits against "
+                             f"float64 in {bad}: {out}")
+    return out
+
+
+def drive_ae_cli(root: str, device, images=AE_IMAGES, batch=BATCH,
+                 workers=MANAGER_WORKERS, stop_step=AE_STOP_STEP) -> dict:
+    """``mimm_tpu_torch.cli.uni_modal.main`` with the production preset at
+    full width (ResNetAE 256², 6 levels, 2 residual blocks, z_dim 192,
+    bottleneck 768), B=64, AE_EPOCHS epochs, ``keep_checkpoints`` 1,
+    ``workers`` loader threads, over ``write_image_corpus``: run A
+    uninterrupted, run B stopped by a SIGTERM after ``stop_step``, run C
+    resuming B ("auto").  Raises unless C ends at A's step count on A's
+    bits in every tensor, every read was a crop-cache hit, the AE path
+    launched no port kernel, only the newest epoch checkpoint is left and
+    the .bin files reload strict into a fresh ResNetAE and its towers
+    with A's eval embedding; then the step's numbers
+    (``ae_step_numbers``) and the f32 step against float64
+    (``ae_f32_against_f64``)."""
+    from mimm_tpu_torch import preempt
+    from mimm_tpu_torch.cli import uni_modal
+    from mimm_tpu_torch.train import ae
+
+    cuda = torch.device(device).type == "cuda"
+    card = card_line() if cuda else "cpu"
+    started = time.perf_counter()
+    corpus = write_image_corpus(os.path.join(root, "corpus"), images, 256,
+                                SEED + 31)
+    written = time.perf_counter() - started
+
+    def argv(save, *extra):
+        return ["--preset", "production", "--device", str(device),
+                "--batch_size", str(batch), "--num_train_epochs",
+                str(AE_EPOCHS), "--keep_checkpoints", "1",
+                "--data_loader_workers", str(workers), "--prefetch", "2",
+                "--seed", str(SEED), "--image_dir", corpus["images"],
+                "--dataset_metadata", corpus["metadata"],
+                "--decoded_crop_cache", corpus["cache"],
+                "--save_directory", save, *extra]
+
+    kernel_mods = (fa, sc, pc, ff)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    probe = _AEProbe()
+    try:
+        with probe:
+            # ---- A: uninterrupted; the AE path's launches -------------------
+            save_a = os.path.join(root, "ae_a")
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            for mod in kernel_mods:
+                mod.reset_launch_counts()       # the AE path starts here
+            state = uni_modal.main(argv(save_a))
+            _sync(device)
+            launches = {k: v for mod in kernel_mods
+                        for k, v in mod.LAUNCHES.items() if v}  # ... ends here
+            peak = torch.cuda.max_memory_allocated() if cuda else None
+            recs = [r for r in _jsonl(save_a, "ae") if "epoch_loss" in r]
+            steps, hits = state.step, probe.hits()
+            split = {"load": probe.load_s, "steps": sum(probe.steps),
+                     "saves": list(probe.saves)}
+            files_a = sorted(os.listdir(save_a))
+            want = _ae_flat(state)
+            fresh = ae.build_ae_model(TrainingConfig.production(), device)
+            ckpt.load_ae_from_bins(fresh, save_a, AE_EPOCHS)
+            x = device_normalize(_ae_images(np.random.default_rng(SEED + 37),
+                                            8, device)).permute(0, 3, 1, 2)
+            with torch.no_grad():
+                reload_same = torch.equal(fresh.encode(x),
+                                          state.model.encode(x)) and all(
+                    torch.equal(a, b) for a, b in zip(
+                        fresh.state_dict().values(),
+                        state.model.state_dict().values()))
+            del state, fresh
+            if cuda:
+                torch.cuda.empty_cache()
+            # ---- B: a SIGTERM after stop_step -------------------------------
+            save_bc = os.path.join(root, "ae_bc")
+            probe.reset()
+            probe.stop_at = stop_step
+            state = uni_modal.main(argv(save_bc))
+            probe.stop_at = None
+            b_step, b_hits = state.step, probe.hits()
+            preempted = any(r.get("preempted") == 1
+                            for r in _jsonl(save_bc, "ae"))
+            del state
+            preempt.clear()   # a new process would start without the flag
+            # ---- C: the same command, --resume_from auto --------------------
+            probe.reset()
+            state = uni_modal.main(argv(save_bc, "--resume_from", "auto"))
+            _sync(device)
+            c_hits, c_step = probe.hits(), state.step
+            got = _ae_flat(state)
+            files_c = sorted(os.listdir(save_bc))
+            del state
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        preempt.uninstall()
+        preempt.clear()
+    runs_s = time.perf_counter() - started
+
+    per_epoch = steps // AE_EPOCHS
+    epoch_s = [r["epoch_seconds"] for r in recs]
+    print(f"  corpus: {images} images, crop-cache windows of a "
+          f"{CXR_SHAPE[0]}x{CXR_SHAPE[1]} CXR, written in {written:.1f} s "
+          f"(host clock)")
+    print(f"  run A: {steps} steps ({per_epoch} an epoch), epochs "
+          f"{', '.join(f'{s:.3f}' for s in epoch_s)} s = "
+          + ", ".join(f"{per_epoch * batch / s:.1f}" for s in epoch_s)
+          + " images/s (host clock, ae.jsonl), epoch losses "
+          + ", ".join(f"{r['epoch_loss']:.6f}" for r in recs)
+          + ", peak " + (f"{peak / 2 ** 30:.2f} GiB" if cuda
+                         else "not measured") + f"  [{card}]")
+    print(f"  run A's {AE_EPOCHS} epochs ({sum(epoch_s):.3f} s): dataset.load "
+          f"{split['load']:.3f} thread-s over {workers} loader threads, step "
+          f"calls {split['steps']:.3f} s (host time; "
+          f"{split['steps'] / max(1, steps) * 1e3:.2f} ms a call), "
+          f"save_ae_checkpoint "
+          + ", ".join(f"{s:.3f}" for s in split["saves"]) + f" s  [{card}]")
+    print(f"  crop cache (hits, misses): A {hits}, B {b_hits}, C {c_hits}; "
+          f"port-kernel launches on the AE path: {launches or 'none'}")
+    print(f"  run B: SIGTERM after step {stop_step}, stopped at step {b_step}, "
+          f"preempted=1 in ae.jsonl: {preempted}; run C resumed to step "
+          f"{c_step} (A {steps}); files left: A "
+          f"{[f for f in files_a if f.endswith('.ckpt')]}, B/C "
+          f"{[f for f in files_c if f.endswith('.ckpt')]}; the .bin files "
+          f"reload strict with A's eval embedding: {reload_same}")
+    differ = [k for k in want if k not in got or not (
+        torch.equal(want[k], got[k]) if torch.is_tensor(want[k])
+        else want[k] == got[k])]
+    print(f"  C against A: {len(want)} tensors and counts, {len(differ)} "
+          f"differ" + (f", the first {differ[0]}" if differ
+                       else ", bit for bit"))
+    bad = []
+    if differ:
+        bad.append(f"run C differs from run A in {len(differ)} tensors, the "
+                   f"first {differ[0]}")
+    if launches:
+        bad.append(f"the AE path launched port kernels: {launches}")
+    total_hits = [hits, b_hits, c_hits]
+    if any(m for _, m in total_hits) or not all(h for h, _ in total_hits):
+        bad.append(f"crop-cache misses (hits, misses): {total_hits}")
+    if not (0 < b_step < per_epoch and preempted
+            and "ae_preempt.ckpt" in files_c):
+        bad.append(f"run B stopped at step {b_step} (epoch 1 has "
+                   f"{per_epoch}), preempted {preempted}")
+    if c_step != steps or steps != AE_EPOCHS * (images // batch):
+        bad.append(f"run C ended at step {c_step}, A at {steps}")
+    last = f"ae_epoch{AE_EPOCHS}.ckpt"
+    for name, files in (("A", files_a), ("C", files_c)):
+        if [f for f in files if f.startswith("ae_epoch")] != [last] or \
+                f"encoder_{AE_EPOCHS}.bin" not in files:
+            bad.append(f"run {name} left {files}")
+    if not reload_same:
+        bad.append("the .bin files do not reload to A's state")
+    if not all(math.isfinite(r["epoch_loss"]) for r in recs):
+        bad.append(f"run A's losses: {recs}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    numbers = ae_step_numbers(device, batch, card)
+    f32 = ae_f32_against_f64(device, card)
+    seconds = time.perf_counter() - started
+    print(f"  phase 13: {seconds:.1f} s (host clock; the three runs "
+          f"{runs_s:.1f} s)  [{card}]")
+    return {"steps": steps, "epoch_seconds": epoch_s, "split": split,
+            "hits": total_hits, "peak": peak, "seconds": seconds,
+            "f32": f32, **numbers}
 
 
 # ---- main -------------------------------------------------------------------
@@ -3307,6 +3623,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
         mi_cli = drive_mi_cli(root, "cuda",
                               in_memory_pairs_per_s=manager["pairs_per_s"])
+    torch.cuda.empty_cache()
+    print(f"== phase 13: the autoencoder through its entry point (full width, "
+          f"B={BATCH}, {AE_EPOCHS} epochs; runs A, B preempted, C resumed)")
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
+        drive_ae_cli(root, "cuda")
 
     # each path's launches, counted from 0 just before it and read just
     # after; serving runs the flash forward, training and remat the flash

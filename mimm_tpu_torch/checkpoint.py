@@ -213,6 +213,42 @@ def _linear_in_perm(kernel, c: int) -> torch.Tensor:
     return _tensor(out)
 
 
+def _deconv(kernel) -> torch.Tensor:
+    """flax ConvTranspose kernel (KH, KW, I, O) -> torch ConvTranspose2d
+    weight (I, O, KH, KW), spatially flipped: flax applies the kernel
+    unflipped, torch's transposed convolution (the gradient of conv)
+    flipped (mimm_tpu/checkpoint.py:236 ``_deconv_back``)."""
+    return _tensor(np.transpose(np.asarray(kernel)[::-1, ::-1], (2, 3, 0, 1)))
+
+
+def _linear_out_perm(kernel, c: int) -> torch.Tensor:
+    """flax Dense kernel (in, out) whose output is reshaped to an (H, W, C)
+    map -> torch Linear weight (out, in) whose output is reshaped to (C, H,
+    W) (mimm_tpu/checkpoint.py:281 ``_linear_out_perm_back``)."""
+    kernel = np.asarray(kernel)
+    m = kernel.shape[1]
+    h = int(round((m // c) ** 0.5))
+    wt = kernel.T
+    if c * h * h != m:
+        return _tensor(wt)
+    out = np.empty_like(wt)
+    out[flatten_perm(c, h, h), :] = wt
+    return _tensor(out)
+
+
+def _vec_perm(bias, c: int) -> torch.Tensor:
+    """A bias over an (H, W, C)-flattened map -> over the (C, H, W) flatten
+    (mimm_tpu/checkpoint.py:298 ``_vec_perm_back``)."""
+    bias = np.asarray(bias)
+    m = bias.shape[0]
+    h = int(round((m // c) ** 0.5))
+    if c * h * h != m:
+        return _tensor(bias)
+    out = np.empty_like(bias)
+    out[flatten_perm(c, h, h)] = bias
+    return _tensor(out)
+
+
 # ---- ResNet256_6_2_1 ------------------------------------------------------
 
 def resnet_state_dict_from_flax(variables: dict,
@@ -290,6 +326,89 @@ def bert_state_dict_from_flax(variables: dict, num_layers: int) -> StateDict:
         sd["classifier.weight"] = _t(cls["kernel"])
         sd["classifier.bias"] = _tensor(cls["bias"])
     return sd
+
+
+# ---- ResNetAE -------------------------------------------------------------
+
+def ae_state_dict_from_flax(variables: dict, n_levels: int = 6,
+                            n_res: int = 2, z_dim: int = 192) -> StateDict:
+    """flax ResNetAE ``{'params', 'batch_stats'}`` -> the reference-keyed
+    state dict (mimm_tpu/checkpoint.py:575-643
+    ``ae_state_dict_from_variables``).  fc1 reads and fc2 writes the
+    (z_dim, lat, lat) latent, which flax flattens NHWC and the reference
+    NCHW."""
+    p, bs = variables["params"], variables["batch_stats"]
+    sd: StateDict = {}
+
+    def node(tree, tower, path):
+        n = tree[tower]
+        for k in path:
+            n = n[k]
+        return n
+
+    def conv(tower, path, tp, transpose=False):
+        n = node(p, tower, path)
+        sd[f"{tp}.weight"] = (_deconv if transpose else _conv)(n["kernel"])
+        sd[f"{tp}.bias"] = _tensor(n["bias"])
+
+    def bn(tower, path, tp):
+        n, s = node(p, tower, path), node(bs, tower, path)
+        sd[f"{tp}.weight"] = _tensor(n["scale"])
+        sd[f"{tp}.bias"] = _tensor(n["bias"])
+        sd[f"{tp}.running_mean"] = _tensor(s["mean"])
+        sd[f"{tp}.running_var"] = _tensor(s["var"])
+        sd[f"{tp}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+
+    def res_blocks(tower, i):
+        for b in range(n_res):
+            fp, tp = f"level{i}_res{b}", f"{tower}.res_blk_list.{i}.{b}"
+            conv(tower, [fp, "conv1"], f"{tp}.residual_block.0")
+            bn(tower, [fp, "bn1"], f"{tp}.residual_block.1")
+            conv(tower, [fp, "conv2"], f"{tp}.residual_block.3")
+            bn(tower, [fp, "bn2"], f"{tp}.residual_block.4")
+
+    def skip(tower, i, transpose):
+        if f"skip{i}_conv" in p[tower]:
+            conv(tower, [f"skip{i}_conv"],
+                 f"{tower}.multi_res_skip_list.{i}.0", transpose)
+            bn(tower, [f"skip{i}_bn"], f"{tower}.multi_res_skip_list.{i}.1")
+
+    conv("encoder", ["input_conv"], "encoder.input_conv.0")
+    bn("encoder", ["input_bn"], "encoder.input_conv.1")
+    for i in range(n_levels):
+        res_blocks("encoder", i)
+        conv("encoder", [f"down{i}_conv"], f"encoder.conv_list.{i}.0")
+        bn("encoder", [f"down{i}_bn"], f"encoder.conv_list.{i}.1")
+        skip("encoder", i, False)
+    conv("encoder", ["output_conv"], "encoder.output_conv")
+
+    conv("decoder", ["input_conv"], "decoder.input_conv.0")
+    bn("decoder", ["input_bn"], "decoder.input_conv.1")
+    for i in range(n_levels):
+        conv("decoder", [f"up{i}_conv"], f"decoder.conv_list.{i}.0", True)
+        bn("decoder", [f"up{i}_bn"], f"decoder.conv_list.{i}.1")
+        res_blocks("decoder", i)
+        skip("decoder", i, True)
+    conv("decoder", ["output_conv"], "decoder.output_conv")
+
+    sd["fc1.weight"] = _linear_in_perm(p["fc1"]["kernel"], c=z_dim)
+    sd["fc1.bias"] = _tensor(p["fc1"]["bias"])
+    sd["fc2.weight"] = _linear_out_perm(p["fc2"]["kernel"], c=z_dim)
+    sd["fc2.bias"] = _vec_perm(p["fc2"]["bias"], c=z_dim)
+    return sd
+
+
+def load_ae_from_bins(model, save_dir: str, epoch: int) -> None:
+    """Load epoch ``epoch``'s exports of ``save_ae_checkpoint`` into a
+    ``ResNetAE``, each ``strict=True``: ``autoencoder_path_<N>.bin`` into
+    the whole model, then ``encoder_<N>.bin`` and ``decoder_<N>.bin`` (the
+    files the downstream classifier and the reference read) into its
+    encoder and decoder."""
+    bin_ = lambda name: load_state_dict_bin(
+        os.path.join(save_dir, f"{name}_{epoch}.bin"))
+    model.load_state_dict(bin_("autoencoder_path"), strict=True)
+    model.encoder.load_state_dict(bin_("encoder"), strict=True)
+    model.decoder.load_state_dict(bin_("decoder"), strict=True)
 
 
 # ---- Basic_MLP / make_mlp -------------------------------------------------

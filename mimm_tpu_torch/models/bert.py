@@ -33,6 +33,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from mimm_tpu_torch.ops.dropout import dropout_fn
+from mimm_tpu_torch.ops.embedding import embedding_lookup
 from mimm_tpu_torch.ops.flash_attention import flash_attention
 from mimm_tpu_torch.ops.fused_ffn import fused_ffn
 
@@ -256,11 +257,15 @@ class BertModel(nn.Module):
             token_type_ids = torch.zeros_like(input_ids)
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
-        pos_ids = torch.arange(input_ids.shape[1], device=input_ids.device)
-        hidden = (F.embedding(input_ids, emb.word_embeddings.weight.to(dt))
-                  + F.embedding(pos_ids, emb.position_embeddings.weight.to(dt))[None]
-                  + F.embedding(token_type_ids,
-                                emb.token_type_embeddings.weight.to(dt)))
+        # the word and token-type lookups sum their gradients in a fixed
+        # order (ops/embedding.py); the positions are arange(L), the
+        # table's first L rows
+        seq = input_ids.shape[1]
+        hidden = (embedding_lookup(input_ids,
+                                   emb.word_embeddings.weight.to(dt))
+                  + emb.position_embeddings.weight[:seq].to(dt)[None]
+                  + embedding_lookup(token_type_ids,
+                                     emb.token_type_embeddings.weight.to(dt)))
         hidden = _layer_norm(emb.LayerNorm, hidden)
         hidden = dropout_fn(cfg)(hidden, cfg.hidden_dropout_prob, generator,
                                  deterministic)

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no file of mimm_tpu_torch/ or
 chip_smoke.py imports jax, flax or the JAX package (mimm_tpu, cli,
-native), importing the serving, training and MI pretraining entry points
-leaves jax unloaded, and ``_build.build_all`` builds every CUDA source."""
+native), importing the serving, training, MI pretraining and autoencoder
+entry points leaves jax unloaded, and ``_build.build_all`` builds every CUDA source."""
 
 import ast
 import glob
@@ -79,6 +79,21 @@ def test_mi_cli_import_leaves_jax_unloaded():
             "mimm_tpu_torch.data.crop_cache, mimm_tpu_torch.data.etl, "
             "mimm_tpu_torch.preempt, mimm_tpu_torch.utils, "
             "mimm_tpu_torch.checkpoint; "
+            "print(json.dumps(sorted(m for m in sys.modules if "
+            "m.split('.')[0] in %r)))" % (FORBIDDEN,))
+    proc = subprocess.run([sys.executable, "-c", code], env=child_env(),
+                          capture_output=True, text=True, timeout=120,
+                          cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_ae_cli_import_leaves_jax_unloaded():
+    """The autoencoder's entry point, its trainer and model, and the
+    fixed-order embedding lookup."""
+    code = ("import sys, json; import mimm_tpu_torch.cli.uni_modal, "
+            "mimm_tpu_torch.train.ae, mimm_tpu_torch.models.autoencoder, "
+            "mimm_tpu_torch.ops.embedding; "
             "print(json.dumps(sorted(m for m in sys.modules if "
             "m.split('.')[0] in %r)))" % (FORBIDDEN,))
     proc = subprocess.run([sys.executable, "-c", code], env=child_env(),
