@@ -112,8 +112,9 @@ no arguments.  Phases:
    ``keep_checkpoints`` 1, 4 loader threads) over a corpus written here
    from numpy: 1024 pairs whose report lengths follow the bucket mix and
    64 more in each of the 256 and 320 buckets, reports of words of a
-   BERT-base-sized vocabulary (tokenized by the port's tokenizer and
-   ``load_and_cache_examples``), and one crop-cache entry per image with a
+   BERT-base-sized vocabulary (tokenized by the port's native WordPiece
+   tokenizer on 4 threads and ``load_and_cache_examples``), and one
+   crop-cache entry per image with a
    full-resolution CXR's geometry (no image file: every read must be a
    hit).  Run A trains uninterrupted; run B gets a real SIGTERM after step
    5 of epoch 1 and checkpoints; run C resumes it (``resume_from`` "auto")
@@ -121,7 +122,8 @@ no arguments.  Phases:
    deterministic; BERT's embedding lookups sum their gradients in a fixed
    order, and two backward calls of the lookup at the token-type shape
    must give the same bits without the deterministic flag).  The epoch's
-   split between the loader threads' reads, the pinned copies, the steps
+   split between the loader threads' reads (ms a read, every read through
+   the host library), the pinned copies, the steps
    and the saves, the pairs/s of A's epochs, the hits, the pruned
    checkpoints and a strict reload of the ``.bin`` files;
 13. the autoencoder baseline through its entry point,
@@ -153,13 +155,31 @@ no arguments.  Phases:
    REPORT_GDV_RTOL of it, AUC at least CLF_MIN_AUC, the MI classifier
    calling both classes, MM against UM on one line; no port kernel on the
    sweep, runs B-C or the validations, each counted from 0; the split of
-   each sweep (loader thread-seconds, embedding calls, MLP steps, saves),
-   the frozen-encoder pass alone in images/s, seconds a validation;
+   each sweep (loader thread-seconds and ms a read, embedding calls, MLP
+   steps, saves), ten of the MM sweep's embedding calls under
+   torch.profiler (wall, the main thread's time inside operators, device
+   time, the gaps over 1 ms between its operators), the frozen-encoder
+   pass alone in images/s, seconds a validation;
    Grad-CAM on 8 images (shape (8, 8, 8), values in [0, 1], f32 against
    float64 within ``cam_limits``); one embedding pass with
    ``pallas_stem``: one stem forward launch a batch, within STEM_EMB_TOL
    of the cuDNN stem's embedding;
-15. the ``kernels`` JSON line, the card line, and as the last line
+15. the port's host library and profiling: a build of
+   ``csrc/host/mimm_host.cpp`` from scratch with g++ on this host; 256
+   train draws (raw and normalized) and the eval crops of a 12-bit uint16
+   2544 x 3056 source's crop-cache window through the library, each equal
+   bit for bit to the numpy path on this host's CPU; ms a read (crop-cache
+   read + transform) both ways at 1 and 4 threads; phase 12's corpus
+   tokenized by the native encoder (serial and on 4 threads) and by the
+   Python one, the same features, with each time; one epoch of MI
+   pretraining from disk through ``train_mutual_information`` (production
+   preset, ``pallas_stem``, B=64) over 192 pairs in each of the 256 and
+   320 buckets with ``profile_steps`` 3 and ``tensorboard``: the trace
+   under ``profile/`` holds the bf16 flash forward and backward kernels
+   and the stem's forward and dW, each as many times as the launch
+   counters count over the traced dispatches, and the event files under
+   ``tb/mi/`` decode (every CRC checked) to mi.jsonl's scalars;
+16. the ``kernels`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a card it exits before
@@ -193,6 +213,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 from mimm_tpu_torch import checkpoint as ckpt  # noqa: E402
+from mimm_tpu_torch import profiling  # noqa: E402
 from mimm_tpu_torch.cli.serve import build_server  # noqa: E402
 from mimm_tpu_torch.config import (DEFAULT_CLASSIFIER_LAYERS,  # noqa: E402
                                    PRODUCTION_SEQ_BUCKETS, TrainingConfig,
@@ -2880,6 +2901,7 @@ class _RunProbe:
         self.steps, self.lengths, self.losses = [], [], []
         self.load_s, self.copy_s, self.save_s, self.envelope_s = \
             0.0, 0.0, 0.0, 0.0
+        self.reads = 0
         self.caches = []
         self._lock = threading.Lock()
 
@@ -2924,6 +2946,7 @@ class _RunProbe:
             finally:
                 with probe._lock:
                     probe.load_s += time.perf_counter() - t0
+                    probe.reads += 1
 
         def keep_cache(cfg):
             cache = from_config(cfg)
@@ -2990,6 +3013,11 @@ def embedding_repeat(device, batch=BATCH, seq=SEQ, width=768,
     return (grads[0].float() - grads[1].float()).abs().max().item()
 
 
+def _ms_a_read(split: dict) -> str:
+    """A probe's dataset.load thread-seconds over its reads, in ms."""
+    return f"{split['load'] / max(1, split['reads']) * 1e3:.3f} ms a read"
+
+
 def _jsonl(save: str, name: str = "mi") -> list:
     with open(os.path.join(save, f"{name}.jsonl")) as f:
         return [json.loads(line) for line in f]
@@ -3042,7 +3070,8 @@ def drive_mi_cli(root: str, device, bert_kw=BERT_BASE, pairs=CLI_PAIRS,
                         **ff.LAUNCHES}          # ... and ends here
             recs = [r for r in _jsonl(save_a) if "epoch_loss" in r]
             steps, hits = state.step, probe.hits()
-            split = {"load": probe.load_s, "copy": probe.copy_s,
+            split = {"load": probe.load_s, "reads": probe.reads,
+                     "copy": probe.copy_s,
                      "steps": sum(probe.steps), "save": probe.save_s,
                      "envelope": probe.envelope_s}
             long_steps = sum(L >= bert_kw.get("flash_min_seq_len", 256)
@@ -3095,7 +3124,8 @@ def drive_mi_cli(root: str, device, bert_kw=BERT_BASE, pairs=CLI_PAIRS,
              f"pairs/s" if in_memory_pairs_per_s else "") + f"  [{card}]")
     print(f"  run A's {CLI_EPOCHS} epochs ({sum(epoch_s):.3f} s): "
           f"dataset.load {split['load']:.3f} thread-s over {workers} loader "
-          f"threads, pinned copies {split['copy']:.3f} s, steps "
+          f"threads ({split['reads']} reads, {_ms_a_read(split)} through "
+          f"the host library), pinned copies {split['copy']:.3f} s, steps "
           f"{split['steps']:.3f} s (host time in the step calls), "
           f"save_mi_checkpoints {split['save']:.3f} s (the envelope "
           f"{split['envelope']:.3f} s of it)  [{card}]")
@@ -3220,7 +3250,7 @@ class _AEProbe:
 
     def reset(self):
         self.steps, self.losses, self.saves, self.caches = [], [], [], []
-        self.load_s = 0.0
+        self.load_s, self.reads = 0.0, 0
         self._lock = threading.Lock()
 
     def __enter__(self):
@@ -3262,6 +3292,7 @@ class _AEProbe:
             finally:
                 with probe._lock:
                     probe.load_s += time.perf_counter() - t0
+                    probe.reads += 1
 
         def keep_cache(cfg):
             cache = from_config(cfg)
@@ -3469,8 +3500,8 @@ def drive_ae_cli(root: str, device, images=AE_IMAGES, batch=BATCH,
             peak = torch.cuda.max_memory_allocated() if cuda else None
             recs = [r for r in _jsonl(save_a, "ae") if "epoch_loss" in r]
             steps, hits = state.step, probe.hits()
-            split = {"load": probe.load_s, "steps": sum(probe.steps),
-                     "saves": list(probe.saves)}
+            split = {"load": probe.load_s, "reads": probe.reads,
+                     "steps": sum(probe.steps), "saves": list(probe.saves)}
             files_a = sorted(os.listdir(save_a))
             want = _ae_flat(state)
             fresh = ae.build_ae_model(TrainingConfig.production(), device)
@@ -3524,7 +3555,9 @@ def drive_ae_cli(root: str, device, images=AE_IMAGES, batch=BATCH,
           + ", peak " + (f"{peak / 2 ** 30:.2f} GiB" if cuda
                          else "not measured") + f"  [{card}]")
     print(f"  run A's {AE_EPOCHS} epochs ({sum(epoch_s):.3f} s): dataset.load "
-          f"{split['load']:.3f} thread-s over {workers} loader threads, step "
+          f"{split['load']:.3f} thread-s over {workers} loader threads "
+          f"({split['reads']} reads, {_ms_a_read(split)} through the host "
+          f"library), step "
           f"calls {split['steps']:.3f} s (host time; "
           f"{split['steps'] / max(1, steps) * 1e3:.2f} ms a call), "
           f"save_ae_checkpoint "
@@ -3678,6 +3711,57 @@ def write_labelled_corpus(root: str, studies: int, img_size: int,
     return paths, positives
 
 
+EMBED_SPAN = "chip_smoke.embedding_call"
+EMBED_TRACE_FROM = 20  # the sweep's first embedding calls traced: past the
+EMBED_TRACED = 10      # first epoch's warm-up, the loader threads running
+
+
+def span_split(path: str, span: str) -> list:
+    """Each host-side ``span`` of a torch.profiler trace (its copy on the
+    device's timeline is left out): its wall ms, the ms its thread spent
+    inside operators (their union), the device ms of the kernels that
+    started inside it, the gaps of more than 0.1 ms between its thread's
+    operators (ms: time the thread held no operator; an operator drops the
+    GIL and takes it back when it ends, so a thread waiting for the GIL
+    waits here), and what the trace shows during the gaps over 1 ms:
+    {event name: ms of it inside such a gap}, for the operators and CUDA
+    runtime calls of every thread."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    host = [e for e in events if e.get("cat") in ("cpu_op", "cuda_runtime")]
+    out = []
+    for sp in (e for e in events if e.get("name") == span
+               and e.get("cat") == "user_annotation"):
+        t0, t1 = sp["ts"], sp["ts"] + sp["dur"]
+        ops = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                     if e.get("cat") == "cpu_op" and e.get("tid") == sp["tid"]
+                     and t0 <= e["ts"] < t1)
+        busy, gaps, end = 0.0, [], t0
+        for a, b in ops:
+            if a > end:
+                gaps.append((end, a))
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        if t1 > end:
+            gaps.append((end, t1))
+        gaps = [(a, b) for a, b in gaps if b - a > 1e2]
+        during = collections.Counter()
+        for e in host:
+            for a, b in (g for g in gaps if g[1] - g[0] > 1e3):
+                o = min(b, e["ts"] + e["dur"]) - max(a, e["ts"])
+                if o > 0:
+                    who = "main" if e.get("tid") == sp["tid"] else "other"
+                    during[f"{e['name'][:48]} ({who})"] += o / 1e3
+        device = sum(e["dur"] for e in events
+                     if e.get("cat") == "kernel" and t0 <= e["ts"] < t1)
+        out.append({"wall": sp["dur"] / 1e3, "ops": busy / 1e3,
+                    "device": device / 1e3,
+                    "gaps": [(b - a) / 1e3 for a, b in gaps],
+                    "during": during})
+    return out
+
+
 class _ClassifierProbe:
     """What the classifier runs do, read from outside: the thread-seconds
     of the dataset's reads, each embedding call's and each MLP step's
@@ -3689,11 +3773,17 @@ class _ClassifierProbe:
     def __init__(self, device):
         self.device = device
         self.stop_at = None
+        self.prof = None
         self.reset()
+
+    def trace_embedding_calls(self, logdir: str) -> None:
+        """Trace EMBED_TRACED embedding calls from the EMBED_TRACE_FROM-th
+        of the next run on (once), each inside an EMBED_SPAN span."""
+        self.prof = profiling.StepProfiler(logdir, EMBED_TRACED)
 
     def reset(self):
         self.embed_s, self.step_s, self.saves, self.caches = [], [], [], []
-        self.load_s = 0.0
+        self.load_s, self.reads = 0.0, 0
         self._lock = threading.Lock()
 
     def __enter__(self):
@@ -3714,10 +3804,16 @@ class _ClassifierProbe:
             embed = make_embed(*a, **kw)
 
             def run(images):
+                prof = probe.prof
+                if prof is not None and len(probe.embed_s) == EMBED_TRACE_FROM:
+                    prof.start()
                 t0 = time.perf_counter()
-                out = embed(images)
-                _sync(probe.device)
+                with profiling.annotate(EMBED_SPAN):
+                    out = embed(images)
+                    _sync(probe.device)
                 probe.embed_s.append(time.perf_counter() - t0)
+                if prof is not None and prof.active:
+                    prof.step(out)
                 return out
             return run
 
@@ -3748,6 +3844,7 @@ class _ClassifierProbe:
             finally:
                 with probe._lock:
                     probe.load_s += time.perf_counter() - t0
+                    probe.reads += 1
 
         def keep_cache(cfg):
             cache = from_config(cfg)
@@ -3769,7 +3866,8 @@ class _ClassifierProbe:
          crop_cache.from_config) = self._real
 
     def split(self) -> dict:
-        return {"load": self.load_s, "embed": sum(self.embed_s),
+        return {"load": self.load_s, "reads": self.reads,
+                "embed": sum(self.embed_s),
                 "embed_calls": len(self.embed_s), "steps": sum(self.step_s),
                 "step_calls": len(self.step_s), "saves": sum(self.saves),
                 "save_calls": len(self.saves)}
@@ -4038,6 +4136,7 @@ def drive_classifier(root: str, device, mi_run: str, ae_run: str,
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     probe = _ClassifierProbe(device)
+    probe.trace_embedding_calls(os.path.join(root, "embedding_trace"))
     runs, splits, hits, seconds = {}, {}, {}, {}
     try:
         with probe:
@@ -4183,11 +4282,33 @@ def drive_classifier(root: str, device, mi_run: str, ae_run: str,
               f"{epoch_s:.2f} s an epoch with its saves and validation "
               f"({studies / epoch_s:.1f} images/s); "
               f"dataset.load {s['load']:.3f} thread-s over {workers} loader "
-              f"threads, {s['embed_calls']} embedding calls {s['embed']:.3f} s "
+              f"threads ({s['reads']} reads, {_ms_a_read(s)} through the "
+              f"host library), {s['embed_calls']} embedding calls "
+              f"{s['embed']:.3f} s "
               f"({s['embed'] / max(1, s['embed_calls']) * 1e3:.2f} ms a call), "
               f"MLP steps {s['steps']:.3f} s, {s['save_calls']} saves "
               f"{s['saves']:.3f} s (each call ending in a synchronize, host "
               f"clock); best validation accuracy {accs}  [{card}]")
+    if probe.prof.trace_path:
+        calls = span_split(probe.prof.trace_path, EMBED_SPAN)
+        gaps = sorted((g for c in calls for g in c["gaps"]), reverse=True)
+        rng_of = lambda k: (f"{min(c[k] for c in calls):.2f}–"
+                            f"{max(c[k] for c in calls):.2f}")
+        print(f"  classifier_mm's embedding calls {EMBED_TRACE_FROM}–"
+              f"{EMBED_TRACE_FROM + len(calls) - 1} under torch.profiler "
+              f"({workers} loader threads reading): wall {rng_of('wall')} ms, "
+              f"the main thread inside operators {rng_of('ops')} ms, "
+              f"device {rng_of('device')} ms; gaps over 0.1 ms between the "
+              f"main thread's operators: {len(gaps)} "
+              f"({sum(g > 1 for g in gaps)} over 1 ms), {sum(gaps):.2f} ms in "
+              f"all, median {statistics.median(gaps or [0]):.3f} ms, the "
+              f"largest " + ", ".join(f"{g:.2f}" for g in gaps[:6])
+              + f" ms (the interpreter's switch interval "
+              f"{sys.getswitchinterval() * 1e3:g} ms); inside the gaps over "
+              f"1 ms, ms of each thread's operators and CUDA runtime calls: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in sum(
+                  (c["during"] for c in calls), collections.Counter())
+                  .most_common(6)) + f"  [{card}]")
     print(f"  labelled studies: {studies} for each disease, positives (the "
           f"darkest windows) {positives}; crop cache (hits, misses): {hits}; "
           f"port-kernel launches, each path counted from 0: "
@@ -4317,6 +4438,395 @@ def _keep_only(root: str, keep_dir: str, *names: str) -> None:
             os.remove(path)
 
 
+# ---- phase 15: the host library and profiling ------------------------------
+
+HOST_DRAWS = 256       # train draws of phase 12's window geometry, each way
+HOST_IMAGES = 4        # 12-bit uint16 CXR_SHAPE sources they are cut from
+HOST_TIMED = 64        # reads timed each way at 1 and at 4 threads
+HOST_THREADS = (1, 4)
+PROFILE_STEPS = 3
+PROFILE_LONG = 192     # pairs in each of the 256 and 320 buckets: 3 batches
+# the device kernels each wrapper's launch puts in a torch.profiler trace,
+# each by its demangled or its mangled name
+TRACE_KERNELS = {
+    fa.KERNELS[torch.bfloat16]: (("fwd_bf16_kernel",),),
+    fa.BWD_KERNELS[torch.bfloat16]: (("bwd_rows_bf16_kernel",),
+                                     ("bwd_cols_bf16_kernel",)),
+    sc.KERNELS["fwd"]: (("shallow_conv::fwd_kernel",
+                         "12shallow_conv10fwd_kernel"),),
+    sc.KERNELS["dw"]: (("shallow_conv::dw_kernel",
+                        "12shallow_conv9dw_kernel"),
+                       ("shallow_conv::dw_reduce_kernel",
+                        "12shallow_conv16dw_reduce_kernel"))}
+
+
+def _all_launches() -> dict:
+    return {**fa.LAUNCHES, **sc.LAUNCHES, **pc.LAUNCHES, **ff.LAUNCHES}
+
+
+def host_windows(root: str, img_size: int = 256) -> list:
+    """HOST_IMAGES crop-cache entries of 12-bit uint16 CXR_SHAPE sources
+    as ``support_window`` cuts them, under ``root``: (cache, img_ids,
+    windows) with windows as (win, origin)."""
+    from mimm_tpu_torch.data import crop_cache
+
+    rng = np.random.default_rng(SEED + 31)
+    h, w = CXR_SHAPE
+    oy, ox, wh, ww = crop_cache.support_window(h, w, img_size)
+    cache = crop_cache.DecodedCropCache(os.path.join(root, "cache"), img_size)
+    ids, wins = [], []
+    for k in range(HOST_IMAGES):
+        win = rng.integers(0, 4096, (wh, ww)).astype(np.uint16)
+        img_id = f"host{k}.png"
+        crop_cache.write(cache._path(img_id), win, (oy, ox, h, w))
+        ids.append(img_id)
+        wins.append((win, (oy, ox)))
+    return cache, ids, wins
+
+
+def _plain_window(win, origin, rng, img_size, train, raw):
+    """The numpy path of ``reference_transform_window`` (the host library's
+    plain version)."""
+    from mimm_tpu_torch.data import transforms as tf
+
+    h, w = CXR_SHAPE
+    if train:
+        angle, tx, ty = tf.sample_affine_params(rng, w, h)
+        out = tf.affine_crop(win, angle, tx, ty, img_size,
+                             src_origin=origin, full_shape=(h, w))
+    else:
+        top = int(round((h - img_size) / 2.0)) - origin[0]
+        left = int(round((w - img_size) / 2.0)) - origin[1]
+        out = win[top:top + img_size, left:left + img_size]
+    return np.ascontiguousarray(out) if raw else tf.max_normalize(out)
+
+
+def host_checks(root: str, draws: int = HOST_DRAWS, timed: int = HOST_TIMED,
+                img_size: int = 256) -> dict:
+    """The host library on this host's CPU: a build from scratch into a
+    directory of its own, then every train draw (raw and normalized) and
+    the eval crop of the windows against the numpy path bit for bit, and
+    ms a read at 1 and 4 threads: the crop-cache read alone, the transform
+    alone both ways, and the two together both ways.  Raises on a
+    differing pixel."""
+    import concurrent.futures
+
+    from mimm_tpu_torch.data import native_ops
+    from mimm_tpu_torch.data import transforms as tf
+
+    gxx = subprocess.run([native_ops._gxx(), "--version"], capture_output=True,
+                         text=True).stdout.splitlines()[0]
+    build_dir, real_dir = os.path.join(root, "host_build"), _build.BUILD_DIR
+    _build.BUILD_DIR = build_dir
+    t0 = time.perf_counter()
+    try:
+        built = native_ops.build()
+    finally:
+        _build.BUILD_DIR = real_dir
+    build_s = time.perf_counter() - t0
+    print(f"  host library: {os.path.basename(built)} built from scratch in "
+          f"{build_s:.2f} s (host clock; {gxx}, "
+          f"{' '.join(native_ops.GXX_FLAGS)})")
+
+    cache, ids, wins = host_windows(root, img_size)
+    h, w = CXR_SHAPE
+    bad, compared = [], 0
+    for d in range(draws):
+        win, origin = wins[d % len(wins)]
+        for raw in (False, True):
+            got = tf.reference_transform_window(
+                win, origin, (h, w), np.random.default_rng((SEED, d)),
+                img_size, train=True, raw=raw)
+            want = _plain_window(win, origin, np.random.default_rng((SEED, d)),
+                                 img_size, True, raw)
+            compared += 1
+            if got.dtype != want.dtype or not np.array_equal(got, want):
+                where = np.argwhere(got != want)
+                bad.append(f"draw {d} raw={raw}: {len(where)} pixels, first "
+                           f"{where[0].tolist() if len(where) else '-'}")
+    for win, origin in wins:
+        for raw in (False, True):
+            got = tf.reference_transform_window(win, origin, (h, w), None,
+                                                img_size, train=False,
+                                                raw=raw)
+            want = _plain_window(win, origin, None, img_size, False, raw)
+            compared += 1
+            if got.dtype != want.dtype or not np.array_equal(got, want):
+                bad.append(f"eval raw={raw}")
+    print(f"  native against numpy on this host's CPU: {compared} crops "
+          f"({draws} train draws of a {h}x{w} uint16 source's 256 window, "
+          f"raw and normalized, and {len(wins)} eval crops each way), "
+          f"{len(bad)} differ" + (f": {bad[:3]}" if bad else ", bit for bit"))
+    if bad:
+        raise AssertionError(f"the host library differs from numpy: {bad[:3]}")
+
+    h, w = CXR_SHAPE
+    loaded = [cache.read("", img_id) for img_id in ids]
+
+    def transform(i, native):
+        win, oy, ox = loaded[i % len(loaded)][:3]
+        rng = np.random.default_rng((SEED, 1, i))
+        if native:
+            return tf.reference_transform_window(win, (oy, ox), (h, w), rng,
+                                                 img_size, raw=True)
+        return _plain_window(win, (oy, ox), rng, img_size, True, True)
+
+    ways = {"cache read": lambda i: cache.read("", ids[i % len(ids)]),
+            "native transform": lambda i: transform(i, True),
+            "numpy transform": lambda i: transform(i, False),
+            "read + native": lambda i: (cache.read("", ids[i % len(ids)]),
+                                        transform(i, True)),
+            "read + numpy": lambda i: (cache.read("", ids[i % len(ids)]),
+                                       transform(i, False))}
+    ms = {}
+    for way, fn in ways.items():
+        fn(0)
+        for threads in HOST_THREADS:
+            t0 = time.perf_counter()
+            if threads == 1:
+                for i in range(timed):
+                    fn(i)
+            else:
+                with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+                    list(pool.map(fn, range(timed)))
+            ms[way, threads] = (time.perf_counter() - t0) / timed * 1e3
+    print(f"  ms a read ({timed} reads of a window, raw train transform; "
+          f"wall clock over reads, {HOST_THREADS[0]} thread / "
+          f"{HOST_THREADS[1]} threads): " + ", ".join(
+              f"{way} {ms[way, 1]:.3f} / {ms[way, 4]:.3f}" for way in ways)
+          + f"  (host clock, {os.cpu_count()} cores)")
+    return {"build_s": build_s, "compared": compared, "ms": ms}
+
+
+def tokenize_both(root: str, bert_kw: dict, pairs: int, long: int,
+                  seq: int) -> dict:
+    """Phase 12's corpus (its writer and seed) tokenized natively (serial
+    and on 4 threads) and by the Python encoder (serial: CUDA is
+    initialized, so no forked pool): the same features, and each time."""
+    from mimm_tpu_torch.data.features import (convert_examples_to_features,
+                                              create_examples_from_tsv)
+    from mimm_tpu_torch.data.tokenizer import (NativeWordPieceTokenizer,
+                                               WordPieceTokenizer)
+
+    corpus = write_cli_corpus(os.path.join(root, "corpus12"), pairs, long,
+                              bert_kw["vocab_size"], 256, SEED + 23)
+    examples = create_examples_from_tsv(os.path.join(corpus["text"],
+                                                     "all_data.tsv"))
+    out, seconds = {}, {}
+    for name, tok, workers in (
+            ("native_4_threads", NativeWordPieceTokenizer, 4),
+            ("native_serial", NativeWordPieceTokenizer, 0),
+            ("python_serial", WordPieceTokenizer, 0)):
+        tokenizer = tok.from_pretrained(corpus["bert"])
+        t0 = time.perf_counter()
+        out[name] = convert_examples_to_features(examples, seq, tokenizer,
+                                                 num_workers=workers)
+        seconds[name] = time.perf_counter() - t0
+    same = out["native_4_threads"] == out["native_serial"] \
+        == out["python_serial"]
+    print(f"  WordPiece over phase 12's corpus ({len(examples)} reports, "
+          f"L={seq}): " + ", ".join(f"{k} {v:.3f} s" for k, v in
+                                    seconds.items())
+          + f" (host clock); the same features: {same}")
+    if not same:
+        raise AssertionError("native and Python WordPiece features differ")
+    return seconds
+
+
+def trace_kernel_counts(path: str) -> dict:
+    """{wrapper: [count of each of its device kernels]} in the kernel
+    events of a torch.profiler trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = collections.Counter(e.get("name", "") for e in events
+                                if e.get("cat") == "kernel")
+    return {key: [sum(n for name, n in names.items()
+                      if any(p in name for p in alternatives))
+                  for alternatives in kernels]
+            for key, kernels in TRACE_KERNELS.items()}
+
+
+class _LaunchWindow(profiling.StepProfiler):
+    """Installed as the Manager's StepProfiler: it keeps the port kernels'
+    launch counts when the trace starts and when it stops, so the counters
+    over the traced dispatches can be held against the trace."""
+
+    made: list = []
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.counts_at_start = self.counts_at_stop = None
+        _LaunchWindow.made.append(self)
+
+    def start(self):
+        if not self.active and self.remaining > 0:
+            self.counts_at_start = dict(_all_launches())
+        super().start()
+
+    def close(self, sync_value=None):
+        was = self.active
+        super().close(sync_value)
+        if was:
+            self.counts_at_stop = dict(_all_launches())
+
+
+def dropped_launches(path: str) -> list:
+    """The kernel launches of a torch.profiler trace (``cudaLaunchKernel``
+    and its kin on the host) whose kernel has no event in it: for each,
+    its ms after the trace's first event."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    first = min(e["ts"] for e in events if "ts" in e)
+    kernels = {e["args"].get("correlation") for e in events
+               if e.get("cat") == "kernel" and "args" in e}
+    return sorted((e["ts"] - first) / 1e3 for e in events
+                  if e.get("cat") == "cuda_runtime"
+                  and "LaunchKernel" in e.get("name", "")
+                  and e.get("args", {}).get("correlation") not in kernels)
+
+
+def profiled_mi_run(root: str, device, bert_kw=BERT_BASE, batch=BATCH,
+                    workers=MANAGER_WORKERS, profile_long=PROFILE_LONG
+                    ) -> dict:
+    """One epoch of ``train_mutual_information`` (production preset,
+    ``pallas_stem``, ``scan_steps`` 8) over ``profile_long`` pairs in each
+    of the 256 and 320 buckets with ``profile_steps`` 3 and
+    ``tensorboard``.  Returns its launches, the launch counters over the
+    traced dispatches, the trace's kernel counts, the launches the trace
+    holds no kernel for, and the check of its event files against
+    mi.jsonl; raises on none of them."""
+    from mimm_tpu_torch import tbevents
+    from mimm_tpu_torch.cli.multi_modal import train_mutual_information
+
+    corpus = write_cli_corpus(os.path.join(root, "corpus15"), 0,
+                              profile_long, bert_kw["vocab_size"], 256,
+                              SEED + 37)
+    with open(os.path.join(corpus["bert"], "bert_config.json"), "w") as f:
+        json.dump(bert_kw, f)
+    save = os.path.join(root, "run")
+    cfg = TrainingConfig.production(
+        pallas_stem=True, batch_size=batch, num_train_epochs=1,
+        data_loader_workers=workers, prefetch=2, seed=SEED,
+        image_dir=corpus["images"], text_data_dir=corpus["text"],
+        dataset_metadata=corpus["metadata"],
+        decoded_crop_cache=corpus["cache"],
+        bert_pretrained_dir=corpus["bert"], save_directory=save,
+        profile_steps=PROFILE_STEPS, tensorboard=True)
+    real = mi.StepProfiler
+    _LaunchWindow.made.clear()
+    mi.StepProfiler = _LaunchWindow
+    try:
+        for mod in (fa, sc, pc, ff):
+            mod.reset_launch_counts()       # the profiled path starts here
+        t0 = time.perf_counter()
+        _, state = train_mutual_information(cfg, device)
+        _sync(device)
+        run_s = time.perf_counter() - t0
+        launches = _all_launches()          # ... and ends here
+    finally:
+        mi.StepProfiler = real
+    (prof,) = _LaunchWindow.made
+    traced = {k: prof.counts_at_stop.get(k, 0) - prof.counts_at_start.get(k, 0)
+              for k in TRACE_KERNELS}
+    recs = _jsonl(save)
+    tb_dir = os.path.join(save, "tb", "mi")
+    (events,) = [os.path.join(tb_dir, f) for f in os.listdir(tb_dir)]
+    got = {(t, s): v for _, s, t, v in tbevents.read_scalars(events)}
+    want, ordinal = {}, 0
+    for rec in recs:
+        step = rec.get("step", rec.get("epoch", ordinal))
+        ordinal = step + 1
+        want.update({(k, step): float(np.float32(v)) for k, v in rec.items()
+                     if k not in ("time", "step", "epoch")
+                     and isinstance(v, (int, float))})
+    out = {"launches": launches, "traced": traced, "steps": state.step,
+           "trace_counts": trace_kernel_counts(prof.trace_path),
+           "dropped": dropped_launches(prof.trace_path),
+           "trace_mb": os.path.getsize(prof.trace_path) / 2 ** 20,
+           "trace": os.path.basename(prof.trace_path), "run_s": run_s,
+           "tb": (len(got), len(want), bool(want) and got == want),
+           "finite": all(math.isfinite(r["epoch_loss"]) for r in recs
+                         if "epoch_loss" in r)}
+    shutil.rmtree(save)
+    return out
+
+
+def profiled_mi_in_child(root: str, device, bert_kw=BERT_BASE, batch=BATCH,
+                         workers=MANAGER_WORKERS, profile_long=PROFILE_LONG
+                         ) -> dict:
+    """``profiled_mi_run`` in a process of its own, as a user runs the
+    entry point (this process has run phases 1-14 and a dozen profiler
+    windows by now); its printing goes to this process's output."""
+    out = os.path.join(root, "profiled_mi.json")
+    args = dict(root=root, device=str(device), bert_kw=bert_kw, batch=batch,
+                workers=workers, profile_long=profile_long)
+    code = (f"import json, sys; sys.path.insert(0, {REPO!r}); "
+            f"import torch; torch.backends.cuda.matmul.allow_tf32 = False; "
+            f"torch.backends.cudnn.allow_tf32 = False; "
+            f"torch.backends.mkldnn.enabled = "
+            f"{torch.backends.mkldnn.enabled}; "
+            f"import chip_smoke as c; "
+            f"run = c.profiled_mi_run(**json.loads({json.dumps(args)!r})); "
+            f"json.dump(run, open({out!r}, 'w'))")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO)
+    with open(out) as f:
+        return json.load(f)
+
+
+def drive_host_and_profiling(root: str, device, bert_kw=BERT_BASE,
+                             batch=BATCH, workers=MANAGER_WORKERS,
+                             draws=HOST_DRAWS, timed=HOST_TIMED,
+                             corpus_pairs=CLI_PAIRS, corpus_long=CLI_LONG,
+                             profile_long=PROFILE_LONG) -> dict:
+    """Phase 15: ``host_checks``, ``tokenize_both`` over phase 12's corpus,
+    then ``profiled_mi_run`` in a process of its own
+    (``profiled_mi_in_child``): its trace must name the bf16 flash kernels
+    and the stem's forward and dW with the counts the launch counters give
+    over the traced dispatches, and its event files must decode to
+    mi.jsonl's scalars.  Returns the run's launches and the numbers."""
+    cuda = torch.device(device).type == "cuda"
+    card = card_line() if cuda else "cpu"
+    started = time.perf_counter()
+    host = host_checks(root, draws=draws, timed=timed)
+    tok_s = tokenize_both(root, bert_kw, corpus_pairs, corpus_long,
+                          TrainingConfig.production().max_seq_length)
+    run = profiled_mi_in_child(root, device, bert_kw, batch, workers,
+                               profile_long)
+    bad = []
+    print(f"  MI from disk with profile_steps {PROFILE_STEPS} and "
+          f"tensorboard: {run['steps']} steps over {2 * profile_long} pairs "
+          f"(256 and 320 buckets, scan_steps 8: single-batch dispatches) in "
+          f"{run['run_s']:.1f} s (host clock, tokenizing and the save "
+          f"included); trace {run['trace']} {run['trace_mb']:.1f} MiB  "
+          f"[{card}]")
+    if cuda:
+        print(f"  launch counters over the traced dispatches: "
+              f"{run['traced']}; the trace's kernels: {run['trace_counts']}; "
+              f"launches without a kernel event: {len(run['dropped'])}"
+              + (f" (ms after the trace's first event: "
+                 f"{[round(t, 3) for t in run['dropped'][:8]]})"
+                 if run["dropped"] else ""))
+        for key, per_kernel in run["trace_counts"].items():
+            if run["traced"][key] == 0 or any(n != run["traced"][key]
+                                              for n in per_kernel):
+                bad.append(f"{key}: trace {per_kernel}, counters "
+                           f"{run['traced'][key]}")
+    decoded, jsonl, equal = run["tb"]
+    print(f"  tb/mi: {decoded} scalars decoded (every record's CRC "
+          f"checked), mi.jsonl's {jsonl}: equal {equal}")
+    if not equal:
+        bad.append(f"tb/mi's {decoded} scalars against mi.jsonl's {jsonl}")
+    if not run["finite"]:
+        bad.append("a loss that is not finite")
+    seconds = time.perf_counter() - started
+    print(f"  phase 15: {seconds:.1f} s (host clock)  [{card}]")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return {"launches": run["launches"], "traced": run["traced"],
+            "trace_counts": run["trace_counts"], "host": host,
+            "tokenize_s": tok_s, "seconds": seconds, "steps": run["steps"]}
+
+
 # ---- main -------------------------------------------------------------------
 
 def main() -> int:
@@ -4401,6 +4911,12 @@ def main() -> int:
               f"epochs; runs A, B preempted, C resumed)")
         classifier = drive_classifier(os.path.join(root, "clf"), "cuda",
                                       mi_cli["save"], ae_cli["save"])
+    torch.cuda.empty_cache()
+    print(f"== phase 15: the host library and profiling (native against "
+          f"numpy, ms a read, WordPiece, MI from disk with profile_steps "
+          f"{PROFILE_STEPS} and tensorboard; full width, B={BATCH})")
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
+        host = drive_host_and_profiling(root, "cuda")
 
     # each path's launches, counted from 0 just before it and read just
     # after; serving runs the flash forward, training and remat the flash
@@ -4409,7 +4925,9 @@ def main() -> int:
     # remat), the pallas_stem training path and the Manager the stem's
     # forward and dW, the tower's input gradient its dx, the MI entry
     # point from disk the bf16 flash kernels and the stem's forward and dW,
-    # the classifier's embedding pass with the stem kernel its forward
+    # the classifier's embedding pass with the stem kernel its forward, the
+    # profiled MI run of phase 15 the bf16 flash kernels and the stem's
+    # forward and dW
     flash_all = [*fa.KERNELS.values(), *fa.BWD_KERNELS.values()]
     flash_bf16 = [fa.KERNELS[torch.bfloat16], fa.BWD_KERNELS[torch.bfloat16]]
     paths = {"serving": (serve["launches"], fa.KERNELS.values()),
@@ -4430,7 +4948,10 @@ def main() -> int:
              "mi_cli": (mi_cli["launches"],
                         [*flash_bf16, sc.KERNELS["fwd"], sc.KERNELS["dw"]]),
              "classifier_stem_embedding": (classifier["stem_launches"],
-                                           [sc.KERNELS["fwd"]])}
+                                           [sc.KERNELS["fwd"]]),
+             "mi_profiled": (host["launches"],
+                             [*flash_bf16, sc.KERNELS["fwd"],
+                              sc.KERNELS["dw"]])}
     for path, (counts, names) in paths.items():
         for name in names:
             if counts.get(name, 0) == 0:

@@ -28,7 +28,7 @@ from typing import Optional, Sequence
 from mimm_tpu_torch import preempt
 from mimm_tpu_torch.config import TrainingConfig, construct_training_parameters
 from mimm_tpu_torch.data.features import load_and_cache_examples
-from mimm_tpu_torch.data.tokenizer import WordPieceTokenizer
+from mimm_tpu_torch.data.tokenizer import NativeWordPieceTokenizer
 from mimm_tpu_torch.metrics import configure_run_logging
 from mimm_tpu_torch.train.mi import MultiModalManager
 
@@ -41,9 +41,10 @@ def train_mutual_information(cfg: TrainingConfig, device="cuda"):
     configure_run_logging(os.path.join(cfg.save_directory, "training_MI.log"))
     logger = logging.getLogger(__name__)
     logger.info("args: %s", cfg)
-    # before the model: the tokenizing pool forks, and a fork after CUDA
-    # is initialized falls back to serial (data/features.py)
-    tokenizer = WordPieceTokenizer.from_pretrained(cfg.bert_pretrained_dir)
+    # the host library's encoder: featurization runs on threads, without
+    # the GIL (data/features.py)
+    tokenizer = NativeWordPieceTokenizer.from_pretrained(
+        cfg.bert_pretrained_dir)
     features = load_and_cache_examples(cfg.text_data_dir, cfg.max_seq_length,
                                        tokenizer,
                                        num_workers=cfg.data_loader_workers)

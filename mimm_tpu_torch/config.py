@@ -50,10 +50,11 @@ class TrainingConfig:
     they give the same result: ``scan_steps`` (K steps run as a loop),
     ``rng_impl`` (masks come from torch generators), ``compact_transfer``,
     ``s2d_stem`` (the canonical stem; exclusive with ``pallas_stem``, as in
-    JAX).  Knobs
-    of later slices raise in ``train/mi.py`` when set: the mesh and
-    parallel modes, the "orbax" formats, ``profile_steps`` and
-    ``tensorboard``."""
+    JAX); ``profile_steps`` (the Manager's and the autoencoder's
+    first dispatches traced by torch.profiler) and ``tensorboard`` (every
+    trainer's scalars mirrored as TensorBoard events).  Knobs of later
+    slices raise in ``train/mi.py`` when set: the mesh and parallel modes
+    and the "orbax" formats."""
 
     image_dir: str = _default("full_data_set/images/")
     text_data_dir: str = _default("training_data/text/")

@@ -109,17 +109,31 @@ def convert_examples_to_features(examples: Sequence[InputExample],
                                  max_seq_length: int, tokenizer,
                                  num_workers: int = 0
                                  ) -> List[InputFeatures]:
-    """Tokenize ``examples``; with ``num_workers`` > 1 over a forked process
-    pool like the reference (model_utils.py:539-543): pure-Python WordPiece
-    holds the GIL, so threads cannot help.  ``Pool.map`` keeps the order,
-    so the list equals the serial one.  Serial when there are few examples
-    or one core, and once CUDA is initialized in this process: a forked
-    child cannot use the parent's CUDA context (entry points tokenize
-    before they build the model)."""
+    """Tokenize ``examples``; with ``num_workers`` > 1 in parallel.  A
+    tokenizer whose encoder drops the GIL (``native_gil_free``: the host
+    library's, tokenizer.NativeWordPieceTokenizer) fans out over threads,
+    in chunks cut by hand (an executor's per-item dispatch would cost more
+    than the encode), also once CUDA is initialized.  Any other tokenizer
+    takes a forked process pool like the reference's (model_utils.py:
+    539-543): pure-Python WordPiece holds the GIL, so threads cannot help;
+    that pool is not started once CUDA is initialized in this process (a
+    forked child cannot use the parent's CUDA context; entry points
+    tokenize before they build the model).  Both keep the order, so the
+    list equals the serial one.  Serial when there are few examples or one
+    core."""
     label_map = {label: i for i, label in enumerate(LABEL_LIST)}
     label_map["-1"] = -1  # unlabeled (model_utils.py:536)
     workers = min(int(num_workers), max(1, (os.cpu_count() or 1) - 1))
+    convert = lambda part: [convert_example_to_feature(
+        e, label_map, max_seq_length, tokenizer) for e in part]
     if workers > 1 and len(examples) >= 4 * workers:
+        chunk = max(16, len(examples) // (8 * workers))
+        if getattr(tokenizer, "native_gil_free", False):
+            from concurrent.futures import ThreadPoolExecutor
+            parts = [examples[i:i + chunk]
+                     for i in range(0, len(examples), chunk)]
+            with ThreadPoolExecutor(workers) as pool:
+                return [f for part in pool.map(convert, parts) for f in part]
         if torch.cuda.is_initialized():
             logger.info("tokenizing serially: CUDA is initialized in this "
                         "process, and a forked pool would inherit its "
@@ -129,10 +143,8 @@ def convert_examples_to_features(examples: Sequence[InputExample],
             with get_context("fork").Pool(
                     workers, initializer=_pool_init,
                     initargs=(label_map, max_seq_length, tokenizer)) as pool:
-                chunk = max(16, len(examples) // (8 * workers))
                 return pool.map(_pool_convert, examples, chunksize=chunk)
-    return [convert_example_to_feature(e, label_map, max_seq_length, tokenizer)
-            for e in examples]
+    return convert(examples)
 
 
 class TokenFeatureSet:

@@ -1,10 +1,11 @@
-"""Pure-Python WordPiece tokenizer, vocab-file compatible with BertTokenizer.
+"""WordPiece tokenizers, vocab-file compatible with BertTokenizer.
 
 The port's own copy of mimm_tpu/data/tokenizer.py (``load_vocab``,
-``BasicTokenizer``, ``WordpieceTokenizer``, ``WordPieceTokenizer``): basic
-tokenization (clean/lower/strip accents/split punctuation), then greedy
-longest-match-first wordpiece with '##' continuations.  The JAX package's
-native C++ variant gives the same tokens; its port is on the ROADMAP.
+``BasicTokenizer``, ``WordpieceTokenizer``, ``WordPieceTokenizer``,
+``NativeWordPieceTokenizer``): basic tokenization (clean/lower/strip
+accents/split punctuation), then greedy longest-match-first wordpiece with
+'##' continuations.  ``NativeWordPieceTokenizer`` encodes ASCII text in
+the port's host library (data/native_ops.py) without the GIL.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import collections
 import os
 import unicodedata
+import weakref
 from typing import Dict, List, Optional
 
 
@@ -179,3 +181,60 @@ class WordPieceTokenizer:
     def vocab_size(self) -> int:
         return len(self.vocab)
 
+
+
+class NativeWordPieceTokenizer(WordPieceTokenizer):
+    """``WordPieceTokenizer`` whose ``encode_wordpiece_ids`` runs in the
+    host library (csrc/host/mimm_host.cpp ``mimm_wp_encode``) for ASCII
+    text, without the GIL: featurization fans out over threads, also once
+    CUDA is initialized (features.convert_examples_to_features).  A text
+    with a non-ASCII byte takes the Python encoder, which carries the full
+    Unicode rules; that is the only text the Python path sees.  A library
+    that cannot be built raises.
+
+    ``from_pretrained(dir or vocab.txt)`` builds one.  The C++ vocabulary
+    is freed with the tokenizer (``weakref.finalize``).  Pickling drops the
+    raw handle, and the unpickled copy loads its own from the same
+    vocabulary file."""
+
+    def __init__(self, vocab_file: str, do_lower_case: bool = True):
+        super().__init__(load_vocab(vocab_file), do_lower_case=do_lower_case)
+        self.vocab_file = vocab_file
+        self._attach()
+
+    def _attach(self) -> None:
+        from mimm_tpu_torch.data import native_ops
+        self._native_handle = native_ops.wp_create(self.vocab_file)
+        # the destroy function itself is captured, so the finalizer also
+        # runs at interpreter shutdown
+        self._finalizer = weakref.finalize(self, native_ops.wp_destroy,
+                                           self._native_handle)
+
+    @property
+    def native_gil_free(self) -> bool:
+        return True
+
+    @classmethod
+    def from_pretrained(cls, vocab_dir_or_file: str, do_lower_case: bool = True
+                        ) -> "NativeWordPieceTokenizer":
+        path = vocab_dir_or_file
+        if os.path.isdir(path):
+            path = os.path.join(path, "vocab.txt")
+        return cls(path, do_lower_case=do_lower_case)
+
+    def encode_wordpiece_ids(self, text: str) -> List[int]:
+        from mimm_tpu_torch.data import native_ops
+        ids = native_ops.wp_encode(self._native_handle, text,
+                                   self.basic.do_lower_case)
+        return super().encode_wordpiece_ids(text) if ids is None else ids
+
+    def __getstate__(self):
+        # a raw C pointer: meaningless in another process
+        state = dict(self.__dict__)
+        state.pop("_native_handle")
+        state.pop("_finalizer")
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._attach()

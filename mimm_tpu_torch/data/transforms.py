@@ -1,5 +1,5 @@
-"""The image transform chain with reference parity, in numpy
-(mimm_tpu/data/transforms.py counterpart, its numpy path).
+"""The image transform chain with reference parity
+(mimm_tpu/data/transforms.py counterpart).
 
 Reference chain (helpers.py:146-161, duplicated at main_utils.py:35-44):
 
@@ -12,11 +12,17 @@ fill 0) instead of the whole ~2544 x 3056 CXR.  The draws are
 torchvision's distributions from a numpy Generator, so a sample is a pure
 function of (seed, epoch, index).
 
-An 8- or 16-bit source is sampled in its own dtype, as the JAX package's
-native host library does (native/mimm_host.cpp; its numpy fallback casts
-to int16 first, which gives the same values below 2^15, the range of
-12-bit CXRs); other dtypes take the reference's int16 cast.  The port
-gives JAX's bits whether JAX runs its native or its numpy path there.
+An 8- or 16-bit source goes through the port's host library
+(data/native_ops.py, csrc/host/mimm_host.cpp), on the branches where the
+JAX package takes its own (mimm_tpu/data/transforms.py:160-243): the
+affine crop of the train path, raw or normalized, over a whole image or a
+crop-cache window, and the center crop of the eval path.  The library
+computes what ``affine_crop`` / ``center_crop`` + ``max_normalize`` do
+here, bit for bit, without the GIL; a failed build raises.  The numpy
+functions stay the plain version the tests hold the library against, and
+the path of other dtypes, which take the reference's int16 cast (equal to
+sampling an 8- or 16-bit source in its own dtype below 2^15, the range of
+12-bit CXRs).
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ import math
 from typing import Optional, Tuple
 
 import numpy as np
+
+from mimm_tpu_torch.data import native_ops
 
 _INTEGER = (np.uint8, np.uint16)
 
@@ -134,13 +142,27 @@ def reference_transform(img: np.ndarray, rng: Optional[np.random.Generator],
     """The reference augmentation chain on one grayscale image: (img_size,
     img_size) float32 in [0, 1], or with ``raw`` the crop in the source's
     8- or 16-bit dtype.  ``train=False`` (or no ``rng``) skips the affine:
-    CenterCrop only, the deterministic eval path."""
+    CenterCrop only, the deterministic eval path.  An 8- or 16-bit source
+    goes through the host library (a smaller image's zero-padded eval crop
+    stays in numpy, as in JAX)."""
     if img.ndim == 3:
         img = img[..., 0]
+    h, w = img.shape[:2]
+    native = img.dtype in _INTEGER
+    top = int(round((h - img_size) / 2.0))
+    left = int(round((w - img_size) / 2.0))
     if train and rng is not None:
-        h, w = img.shape[:2]
         angle, tx, ty = sample_affine_params(rng, w, h)
+        if native:
+            m = _inverse_affine_matrix((w * 0.5, h * 0.5), angle, (tx, ty))
+            if raw:
+                return native_ops.affine_crop_raw(img, m, top, left, img_size)
+            return native_ops.affine_crop_norm(img, m, top, left, img_size)
         out = affine_crop(_source(img), angle, tx, ty, img_size)
+    elif native and h >= img_size and w >= img_size:
+        if raw:
+            return native_ops.center_crop_raw(img, top, left, img_size)
+        return native_ops.center_crop_norm(img, top, left, img_size)
     else:
         out = center_crop(_source(img), img_size)
     return _finish(out, img.dtype, raw)
@@ -154,19 +176,30 @@ def reference_transform_window(win: np.ndarray, src_origin: Tuple[int, int],
     """``reference_transform`` over a crop-cache window (data/crop_cache.py):
     ``win`` is the affine-support window cut from a ``full_shape`` source at
     ``src_origin``.  Every draw and offset is the full image's, so the
-    output is ``reference_transform``'s on the whole decoded image."""
+    output is ``reference_transform``'s on the whole decoded image.  An 8-
+    or 16-bit window goes through the host library, its eval crop as a
+    center crop of the window at the full image's offsets less the
+    origin."""
     if win.ndim == 3:
         win = win[..., 0]
     h, w = full_shape
     oy0, ox0 = src_origin
+    top = int(round((h - img_size) / 2.0))
+    left = int(round((w - img_size) / 2.0))
     if train and rng is not None:
         angle, tx, ty = sample_affine_params(rng, w, h)
+        if win.dtype in _INTEGER:
+            m = _inverse_affine_matrix((w * 0.5, h * 0.5), angle, (tx, ty))
+            return native_ops.affine_crop_win(win, m, top, left, oy0, ox0,
+                                              img_size, raw=raw)
         out = affine_crop(_source(win), angle, tx, ty, img_size,
                           src_origin=src_origin, full_shape=(h, w))
     elif h >= img_size and w >= img_size:
         # the window always covers the central crop
-        top = int(round((h - img_size) / 2.0))
-        left = int(round((w - img_size) / 2.0))
+        if win.dtype in _INTEGER:
+            crop = native_ops.center_crop_raw if raw \
+                else native_ops.center_crop_norm
+            return crop(win, top - oy0, left - ox0, img_size)
         out = _source(win)[top - oy0:top - oy0 + img_size,
                            left - ox0:left - ox0 + img_size]
     else:

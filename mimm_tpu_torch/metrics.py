@@ -7,10 +7,11 @@ separability (``gdv_calculation`` :148 with its helpers :119-145),
 copies of the JAX package's functions, the reference's quirks included
 (GDV divides by the ELEMENT count, reference validate.py:16-49).
 
-``MetricWriter`` writes scalars to ``<save_dir>/<name>.jsonl`` and mirrors
-epoch summaries into a reference-format log file (``Epoch N loss = ...``).
-The TensorBoard mirror comes with the profiling slice (ROADMAP.md queue A,
-"profiling.py and tbevents.py") and raises.  ``Plot_Training`` draws with matplotlib, imported at
+``MetricWriter`` writes scalars to ``<save_dir>/<name>.jsonl``, mirrors
+epoch summaries into a reference-format log file (``Epoch N loss = ...``)
+and, with ``tensorboard=True``, every numeric scalar into TensorBoard event
+files under ``<save_dir>/tb/<name>/`` (tbevents.py).  ``Plot_Training``
+draws with matplotlib, imported at
 the call; where matplotlib is not installed it logs a warning and writes
 no PNG (a host artifact; nothing reads it back).
 """
@@ -226,19 +227,24 @@ def configure_run_logging(filename: str) -> None:
 class MetricWriter:
     """Scalars to ``<save_directory>/<name>.jsonl``; epoch summaries also
     to the logger ``mimm_tpu_torch.<name>``, and to ``log_filename`` in the
-    save directory when given."""
+    save directory when given.  ``tensorboard=True`` mirrors every numeric
+    scalar of each record as a TensorBoard event under
+    ``<save_directory>/tb/<name>/`` (tbevents.TBEventWriter), at the
+    record's ``step``, else its ``epoch``, else one past the last step
+    written."""
 
     def __init__(self, save_directory: str, name: str = "metrics",
                  log_filename: Optional[str] = None,
                  tensorboard: bool = False):
-        if tensorboard:
-            raise NotImplementedError("the TensorBoard mirror comes with the "
-                                      "profiling slice (ROADMAP.md queue A, "
-                                      "\"profiling.py and tbevents.py\")")
         os.makedirs(save_directory, exist_ok=True)
         self.save_directory = save_directory
         self.jsonl_path = os.path.join(save_directory, f"{name}.jsonl")
         self._fh = open(self.jsonl_path, "a")
+        self._tb = None
+        if tensorboard:
+            from mimm_tpu_torch.tbevents import TBEventWriter
+            self._tb = TBEventWriter(os.path.join(save_directory, "tb", name))
+        self._tb_step = 0  # the ordinal of a record without a step
         self.logger = logging.getLogger(f"mimm_tpu_torch.{name}")
         self._handler = None
         if log_filename is not None:
@@ -256,6 +262,18 @@ class MetricWriter:
                     for k, v in scalars.items()})
         self._fh.write(json.dumps(rec) + "\n")
         self._fh.flush()
+        if self._tb is not None:
+            # an epoch record (epoch_summary) carries its ordinal as the
+            # 'epoch' scalar, not as the step
+            tb_step = step if step is not None else \
+                int(rec.get("epoch", self._tb_step))
+            self._tb_step = tb_step + 1
+            for k, v in rec.items():
+                # 'epoch' is the record's ordinal, not a metric
+                if k not in ("time", "step", "epoch") and \
+                        isinstance(v, (int, float)):
+                    self._tb.scalar(k, v, tb_step, wall_time=rec["time"])
+            self._tb.flush()
 
     def epoch_summary(self, epoch: int, loss: float, seconds: float,
                       checkpoint_path: Optional[str] = None) -> None:
@@ -269,6 +287,8 @@ class MetricWriter:
 
     def close(self) -> None:
         self._fh.close()
+        if self._tb is not None:
+            self._tb.close()
         if self._handler is not None:
             # detached, so a second run in this process logs only to its own
             self.logger.removeHandler(self._handler)

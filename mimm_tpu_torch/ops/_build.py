@@ -56,30 +56,43 @@ def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless the current hash is built; returns
     the library path.  A failed build raises with nvcc's stderr."""
     out = library_path(name)
+    report = compile_locked(
+        name, out, lambda tmp: [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                                os.path.join(CSRC, f"{name}.cu")])
+    if report is not None:
+        ptxas_reports[name] = report
+        with open(out + ".ptxas.txt", "w") as f:
+            f.write(report)
+    elif name not in ptxas_reports and os.path.exists(out + ".ptxas.txt"):
+        with open(out + ".ptxas.txt") as f:
+            ptxas_reports[name] = f.read()
+    return out
+
+
+def compile_locked(name: str, out: str, command) -> str | None:
+    """Run ``command(tmp)`` to build ``out`` unless it exists, holding
+    ``BUILD_DIR/<name>.lock`` so concurrent builds of one library wait
+    for each other; the output is renamed into place only when the
+    compiler succeeds.  Returns the compiler's stderr when this call built
+    it, else None; a failed build raises with the compiler's stderr."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     with open(os.path.join(BUILD_DIR, f"{name}.lock"), "w") as lockf:
         fcntl.flock(lockf, fcntl.LOCK_EX)
         try:
-            if not os.path.exists(out):
-                tmp = f"{out}.{os.getpid()}.tmp"
-                cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                       os.path.join(CSRC, f"{name}.cu")]
-                proc = subprocess.run(cmd, capture_output=True, text=True)
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed for {name} (rc={proc.returncode}):\n"
-                        f"{' '.join(cmd)}\n{proc.stderr}")
-                os.replace(tmp, out)
-                ptxas_reports[name] = proc.stderr
-                with open(out + ".ptxas.txt", "w") as f:
-                    f.write(proc.stderr)
-            elif name not in ptxas_reports \
-                    and os.path.exists(out + ".ptxas.txt"):
-                with open(out + ".ptxas.txt") as f:
-                    ptxas_reports[name] = f.read()
+            if os.path.exists(out):
+                return None
+            tmp = f"{out}.{os.getpid()}.tmp"
+            cmd = command(tmp)
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"{os.path.basename(cmd[0])} failed for {name} "
+                    f"(rc={proc.returncode}):\n{' '.join(cmd)}\n"
+                    f"{proc.stderr}")
+            os.replace(tmp, out)
+            return proc.stderr
         finally:
             fcntl.flock(lockf, fcntl.LOCK_UN)
-    return out
 
 
 def build_all() -> dict:

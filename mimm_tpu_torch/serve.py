@@ -209,8 +209,10 @@ class InferenceSession:
         self._device_lock = threading.Lock()
         self._tokenizer = None
         if vocab_dir is not None:
-            from mimm_tpu_torch.data.tokenizer import WordPieceTokenizer
-            self._tokenizer = WordPieceTokenizer.from_pretrained(vocab_dir)
+            from mimm_tpu_torch.data.tokenizer import \
+                NativeWordPieceTokenizer
+            self._tokenizer = NativeWordPieceTokenizer.from_pretrained(
+                vocab_dir)
 
         self.image_model = ResNet256_6_2_1(output_channels=output_channels,
                                            dtype=self.dtype)

@@ -20,9 +20,13 @@ from the same running statistics, and the new ones are the mean over the
 chunks of each chunk's update; a batch the chunks do not divide takes the
 single-pass step, with a warning.
 
+The trainer traces its first ``cfg.profile_steps`` steps into
+``<save_directory>/profile/`` (profiling.StepProfiler) and with
+``cfg.tensorboard`` mirrors ``ae.jsonl`` into ``tb/ae/``.
+
 Left to later slices, raising ``NotImplementedError`` when asked for: the
-mesh, ZeRO-1 and FSDP sharding, cross-replica BatchNorm, the "orbax"
-checkpoint formats, and the profiler and TensorBoard hooks.
+mesh, ZeRO-1 and FSDP sharding, cross-replica BatchNorm and the "orbax"
+checkpoint formats.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from mimm_tpu_torch.data.pipeline import (CXRImageDataset, Loader,
 from mimm_tpu_torch.metrics import MetricWriter, Plot_Training
 from mimm_tpu_torch.models.autoencoder import ResNetAE
 from mimm_tpu_torch.ops.image_norm import device_normalize
+from mimm_tpu_torch.profiling import StepProfiler
 from mimm_tpu_torch.train.optim import (GradientTransformation, adam_torch,
                                         apply_updates, state_from_tree,
                                         state_to_tree)
@@ -53,8 +58,6 @@ logger = logging.getLogger(__name__)
 
 _PARALLEL = ("comes with the parallel slice (ROADMAP.md queue A, "
              "\"parallel/mesh.py and parallel/pipeline.py\")")
-_PROFILING = ("come with the profiling slice (ROADMAP.md queue A, "
-              "\"profiling.py and tbevents.py\")")
 
 
 @dataclasses.dataclass
@@ -262,9 +265,6 @@ def _check_config(cfg, mesh) -> None:
         raise NotImplementedError(
             f"checkpoint_format {cfg.checkpoint_format!r}: sharded "
             f"multi-rank saves {_PARALLEL}")
-    if cfg.profile_steps > 0 or cfg.tensorboard:
-        raise NotImplementedError(f"profile_steps and tensorboard "
-                                  f"{_PROFILING}")
 
 
 def train_auto_encoder(cfg, dataset=None, num_epochs: Optional[int] = None,
@@ -319,18 +319,23 @@ def train_auto_encoder(cfg, dataset=None, num_epochs: Optional[int] = None,
                                     chunks=max(1, int(cfg.grad_cache_chunks)))
 
     training_loss = []
+    profiler = StepProfiler(os.path.join(cfg.save_directory, "profile"),
+                            cfg.profile_steps)
     for epoch in range(start_epoch, num_epochs):
         start = time.time()
         step_losses = []
         stream = loader.epoch(epoch, start_batch=start_batch
                               if epoch == start_epoch else 0)
+        profiler.start()
         for batch in device_prefetch(stream, size=cfg.prefetch,
                                      device=device):
             state, loss = train_step(state, batch["image"])
             step_losses.append(loss)
+            profiler.step(loss)
             if preempt.should_stop():
                 # SIGTERM: the whole state, and stop; resume_from this
                 # file continues mid-epoch
+                profiler.close()
                 path = ckpt.save_checkpoint(
                     os.path.join(cfg.save_directory, "ae_preempt.ckpt"),
                     ae_state_tree(state))
@@ -339,6 +344,7 @@ def train_auto_encoder(cfg, dataset=None, num_epochs: Optional[int] = None,
                 writer.write(step=state.step, preempted=1)
                 writer.close()
                 return state
+        profiler.close(step_losses[-1] if step_losses else None)
         # one read of the epoch's losses from the device
         epoch_loss = float(np.sum(torch.stack(step_losses).cpu().numpy())) \
             if step_losses else 0.0

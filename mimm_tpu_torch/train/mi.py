@@ -26,10 +26,14 @@ negative pool spans the whole batch while the towers' activations are
 those of one chunk: B=2048 trains on one card in 32 chunks of 64, where
 the critic's size switch takes the pairwise-critic kernels.
 
+The Manager traces its first ``cfg.profile_steps`` dispatches into
+``<save_directory>/profile/`` (profiling.StepProfiler) and with
+``cfg.tensorboard`` mirrors ``mi.jsonl`` into ``tb/mi/``.
+
 Left to later slices, and raising ``NotImplementedError`` when asked for:
 the mesh and parallel modes (pp, ZeRO-1, FSDP, sequence parallelism, bf16
-gradient all-reduce, per-shard negatives, the "orbax" checkpoint formats),
-and the profiler and TensorBoard hooks of the Manager.
+gradient all-reduce, per-shard negatives, the "orbax" checkpoint
+formats).
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ from mimm_tpu_torch.models.joint import ImageReportModel
 from mimm_tpu_torch.models.mlp import make_mlp
 from mimm_tpu_torch.objectives.critics import bound_from_scores
 from mimm_tpu_torch.objectives.pairing import pairwise_critic_scores
+from mimm_tpu_torch.profiling import StepProfiler
 from mimm_tpu_torch.ops.image_norm import decompact_batch
 from mimm_tpu_torch.ops.pairwise_critic import pairwise_critic_scores_pallas
 from mimm_tpu_torch.train.optim import (GradientTransformation, adam_torch,
@@ -70,8 +75,6 @@ logger = logging.getLogger(__name__)
 CRITIC_HIDDEN = (1024, 512)  # reference main_utils.py:77
 _PARALLEL = ("comes with the parallel slice (ROADMAP.md queue A, "
              "\"parallel/mesh.py and parallel/pipeline.py\")")
-_PROFILING = ("come with the profiling slice (ROADMAP.md queue A, "
-              "\"profiling.py and tbevents.py\")")
 
 
 @dataclasses.dataclass
@@ -502,9 +505,6 @@ def _check_manager(cfg, mesh) -> None:
         raise NotImplementedError(
             f"checkpoint_format {cfg.checkpoint_format!r}: sharded "
             f"multi-rank saves {_PARALLEL}")
-    if cfg.profile_steps > 0 or cfg.tensorboard:
-        raise NotImplementedError(f"profile_steps and tensorboard "
-                                  f"{_PROFILING}")
 
 
 def _epoch_loss(step_losses: list) -> float:
@@ -610,12 +610,15 @@ class MultiModalManager:
             if scan_steps > 1 else None
 
         training_loss = []
+        profiler = StepProfiler(os.path.join(cfg.save_directory, "profile"),
+                                cfg.profile_steps)
         for epoch in range(start_epoch, num_epochs):
             start = time.time()
             step_losses = []
             stream = self._epoch_stream(loader, epoch, scan_steps,
                                         start_batch if epoch == start_epoch
                                         else 0)
+            profiler.start()
             for batch in device_prefetch(stream, size=cfg.prefetch,
                                          device=self.device):
                 if batch["image"].dim() == 5:       # a stacked scan chunk
@@ -623,9 +626,11 @@ class MultiModalManager:
                 else:
                     state, loss = train_step(state, batch)
                 step_losses.append(loss)
+                profiler.step(loss)
                 if preempt.should_stop():
                     # SIGTERM: the whole state, and stop; resume_from this
                     # file continues mid-epoch
+                    profiler.close()
                     path = ckpt.save_checkpoint(
                         os.path.join(cfg.save_directory, "mi_preempt.ckpt"),
                         mi_state_tree(state))
@@ -634,6 +639,7 @@ class MultiModalManager:
                     writer.write(step=state.step, preempted=1)
                     writer.close()
                     return state
+            profiler.close(step_losses[-1] if step_losses else None)
             epoch_loss = _epoch_loss(step_losses)
             training_loss.append(epoch_loss)
 

@@ -38,7 +38,9 @@ its depth; the port starts from JAX's initial weights (its
   run's bits (JAX's tests/test_cli_resume.py:60); ``--help`` lists the
   flags;
 * the knobs of later slices raise ``NotImplementedError`` naming their
-  ROADMAP queue A item.
+  ROADMAP queue A item; ``profile_steps`` and ``tensorboard`` work (one
+  epoch of 2 steps: a trace under ``profile/``, an event file under
+  ``tb/ae/``; tests/test_torch_profiling.py checks what they hold).
 
 The JAX side runs in the pytest worker, the port side in a jax-free child
 (tests/torch_port_child.py).
@@ -66,11 +68,13 @@ STEPS = 4
 LOSS_ATOL = 1e-7
 SIZES = ((80, 70), (64, 96), (50, 60))
 PARALLEL = "\"parallel/mesh.py and parallel/pipeline.py\""
-PROFILING = "\"profiling.py and tbevents.py\""
 REFUSALS = {"mesh_shape": PARALLEL, "zero1_optimizer_sharding": PARALLEL,
             "fsdp_parameter_sharding": PARALLEL, "checkpoint_format": PARALLEL,
-            "profile_steps": PROFILING, "tensorboard": PROFILING,
             "bn_axis_name": PARALLEL, "step_mesh": PARALLEL}
+# the profiling knobs -> (value, what they write)
+PROFILING_KNOBS = {"profile_steps": (2, "profile", ".pt.trace.json"),
+                   "tensorboard": (True, os.path.join("tb", "ae"),
+                                   "events.out.tfevents.")}
 
 
 def _epoch_losses(save):
@@ -208,6 +212,17 @@ def test_later_slice_knobs_raise(results, knob):
     err = results[2]["refusals"][knob]
     assert err.startswith("NotImplementedError"), err
     assert REFUSALS[knob] in err, err
+
+
+@pytest.mark.parametrize("knob", list(PROFILING_KNOBS))
+def test_profiling_knobs_work(results, knob):
+    """``profile_steps`` 2 and ``tensorboard`` each through one epoch of
+    the trainer: no error, a finite loss, and the file the knob writes."""
+    run = results[2]["profiling_knobs"][knob]
+    assert run["error"] == "no error", run
+    assert len(run["losses"]) == 1 and np.isfinite(run["losses"][0]), run
+    _, subdir, marker = PROFILING_KNOBS[knob]
+    assert len([f for f in run["written"] if marker in f]) == 1, run
 
 
 def _child(job):
@@ -375,13 +390,23 @@ def _child(job):
         for knob, v in (("mesh_shape", (("data", 2),)),
                         ("zero1_optimizer_sharding", True),
                         ("fsdp_parameter_sharding", True),
-                        ("checkpoint_format", "orbax"),
-                        ("profile_steps", 2), ("tensorboard", True))}
+                        ("checkpoint_format", "orbax"))}
     refusals["bn_axis_name"] = _error_of(
         lambda: ResNetAE(bn_axis_name="data"))
     refusals["step_mesh"] = _error_of(lambda: real_step(
         ResNetAE(**SMALL), ae._ae_tx(cfg), mesh=object()))
     meta["refusals"] = refusals
+    meta["profiling_knobs"] = {}
+    for knob, (value, subdir, _) in PROFILING_KNOBS.items():
+        save = os.path.join(job, f"knob_{knob}")
+        err = _error_of(lambda: ae.train_auto_encoder(
+            cfg_for(save, num_train_epochs=1, **{knob: value}),
+            device="cpu"))
+        subdir = os.path.join(save, subdir)
+        meta["profiling_knobs"][knob] = {
+            "error": err, "losses": _epoch_losses(save),
+            "written": sorted(os.listdir(subdir))
+            if os.path.isdir(subdir) else []}
     np.savez(os.path.join(job, "out.npz"), **out)
     with open(os.path.join(job, "out.json"), "w") as f:
         json.dump(meta, f)

@@ -30,8 +30,10 @@ and the validation metrics (metrics.py) against the JAX package's.
   report`` with empty denominators, ``gdv_calculation``,
   ``Plot_Training_From_Logfile``, ``PrintModel``) equal JAX's.
 * A mesh (the Manager's argument, ``cfg.mesh_shape``,
-  ``make_embedding_fn``'s) and ``tensorboard`` raise
-  ``NotImplementedError`` naming their ROADMAP queue A item.
+  ``make_embedding_fn``'s) raises ``NotImplementedError`` naming its
+  ROADMAP queue A item; ``tensorboard`` works (one epoch writes an event
+  file under ``tb/classifier_Pneumonia/``; tests/test_torch_profiling.py
+  checks what it holds).
 
 The JAX side runs in the pytest worker, the port side in a jax-free child
 started first and run beside it (tests/torch_port_child.py).
@@ -55,7 +57,6 @@ CFG = dict(batch_size=BATCH, seed=0, img_size=IMG, init_lr=LR,
 VAL_FRACTION = 0.25
 PARALLEL = "\"parallel/mesh.py and parallel/pipeline.py\""
 REFUSALS = {"mesh": PARALLEL, "mesh_shape": PARALLEL,
-            "tensorboard": "\"profiling.py and tbevents.py\"",
             "embedding_mesh": PARALLEL,
             "schedule_with_moment_dtype": "queue C"}
 STOP_STEP = 6
@@ -303,6 +304,17 @@ def test_later_slice_knobs_raise(results, knob):
     assert REFUSALS[knob] in err, err
 
 
+@pytest.mark.parametrize("knob", ["tensorboard"])
+def test_profiling_knobs_work(results, knob):
+    """``tensorboard`` through one epoch of the trainer: no error, and one
+    event file beside ``classifier_Pneumonia.jsonl``."""
+    run = results[2]["profiling_knobs"][knob]
+    assert run["error"] == "no error", run
+    assert run["epochs"] == [1], run
+    assert len([f for f in run["written"]
+                if f.startswith("events.out.tfevents.")]) == 1, run
+
+
 def test_training_dropout_needs_a_generator(results):
     """BasicMLP draws its training-mode dropout masks from a generator
     only; without one it raises."""
@@ -479,12 +491,17 @@ def _child(job):
         "mesh": _error_of(lambda: manager(cfg, mesh=object())),
         "mesh_shape": _error_of(lambda: manager(cfg.replace(
             mesh_shape=(("data", 2),)))),
-        "tensorboard": _error_of(lambda: manager(cfg.replace(
-            tensorboard=True)).train()),
         "embedding_mesh": _error_of(lambda: clf.make_embedding_fn(
             "unimodal", ResNetAE(**AE), mesh=object())),
         "schedule_with_moment_dtype": _error_of(lambda: adam_torch(
             lambda count: 1e-3, moment_dtype=torch.bfloat16))}
+    save = os.path.join(job, "knob_tensorboard")
+    err = _error_of(lambda: manager(cfg.replace(
+        save_directory=save, tensorboard=True)).train(num_epochs=1))
+    tb = os.path.join(save, "tb", "classifier_Pneumonia")
+    meta["profiling_knobs"] = {"tensorboard": {
+        "error": err, "epochs": [r["epoch"] for r in _jsonl_epochs(save)],
+        "written": sorted(os.listdir(tb)) if os.path.isdir(tb) else []}}
     meta["dropout_without_generator"] = _error_of(
         lambda: BasicMLP(DIM, HIDDEN).train()(torch.zeros(2, DIM)))
 

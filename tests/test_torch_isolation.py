@@ -1,7 +1,11 @@
 """The PyTorch port stands alone: no file of mimm_tpu_torch/ or
 chip_smoke.py imports jax, flax or the JAX package (mimm_tpu, cli,
 native), importing the serving, training, MI pretraining, autoencoder,
-classifier and validation entry points leaves jax unloaded, and ``_build.build_all`` builds every CUDA source."""
+classifier and validation entry points, the host library, the tokenizers,
+profiling and the TensorBoard writer leaves jax unloaded, no port file
+names the JAX package's host library (its directory or its .so) and a
+process that loads the port's host library maps only the port's build of
+it, and ``_build.build_all`` builds every CUDA source."""
 
 import ast
 import glob
@@ -19,6 +23,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "mimm_tpu", "cli",
 PORT_FILES = sorted(glob.glob(os.path.join(REPO, "mimm_tpu_torch", "**", "*.py"),
                               recursive=True)) \
     + [os.path.join(REPO, "chip_smoke.py")]
+PORT_SOURCES = PORT_FILES + sorted(
+    glob.glob(os.path.join(REPO, "mimm_tpu_torch", "csrc", "**", "*.c*"),
+              recursive=True))
+JAX_HOST_LIBRARY = ("native/", "libmimm_host.so")
 
 
 def _imported_roots(path):
@@ -117,6 +125,49 @@ def test_classifier_cli_import_leaves_jax_unloaded():
                           cwd=REPO)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES,
+                         ids=[os.path.relpath(p, REPO) for p in PORT_SOURCES])
+def test_port_file_names_no_jax_host_library(path):
+    """No port module, source or chip_smoke.py names the JAX package's
+    host library directory or its .so (the port builds its own,
+    data/native_ops.py)."""
+    with open(path) as f:
+        text = f.read()
+    named = [s for s in JAX_HOST_LIBRARY if s in text]
+    assert not named, f"{os.path.relpath(path, REPO)} names {named}"
+
+
+def test_host_library_import_leaves_jax_unloaded():
+    """The host library, the tokenizers, profiling and the TensorBoard
+    writer: jax unloaded, and after a transform and a WordPiece encode the
+    process maps the port's build of the library and not the JAX
+    package's."""
+    code = ("import sys, json, tempfile, os, numpy as np; "
+            "import mimm_tpu_torch.data.native_ops as n, "
+            "mimm_tpu_torch.data.transforms as t, "
+            "mimm_tpu_torch.data.tokenizer, mimm_tpu_torch.profiling, "
+            "mimm_tpu_torch.tbevents; "
+            "t.reference_transform(np.zeros((300, 300), np.uint8), "
+            "np.random.default_rng(0), 256); "
+            "d = tempfile.mkdtemp(); p = os.path.join(d, 'vocab.txt'); "
+            "open(p, 'w').write('[UNK]\\nx\\n'); "
+            "tok = mimm_tpu_torch.data.tokenizer.NativeWordPieceTokenizer"
+            ".from_pretrained(d); tok.encode_wordpiece_ids('x'); "
+            "maps = sorted({l.split()[-1] for l in open('/proc/self/maps') "
+            "if 'mimm_host' in l}); "
+            "print(json.dumps([sorted(m for m in sys.modules if "
+            "m.split('.')[0] in %r), maps]))" % (FORBIDDEN,))
+    proc = subprocess.run([sys.executable, "-c", code], env=child_env(),
+                          capture_output=True, text=True, timeout=120,
+                          cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    modules, maps = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert modules == []
+    assert len(maps) == 1, maps
+    assert maps[0].startswith(os.path.join(REPO, "build", "mimm_tpu_torch",
+                                           "libmimm_host-")), maps
 
 
 def test_build_all_lists_every_cuda_source(monkeypatch, tmp_path):

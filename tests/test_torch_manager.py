@@ -36,7 +36,10 @@ JAX package's (mimm_tpu/data/pipeline.py, mimm_tpu/train/mi.py:633-859).
   1.5e-4).  The planted faults leave it too (at epoch 2: 6.6e-4, 3.5e-3,
   1.4e-4).
 * Every knob of a later slice raises ``NotImplementedError`` naming its
-  queue item by title, before anything is written.
+  queue item by title, before anything is written; ``profile_steps`` and
+  ``tensorboard`` work (one step over 4 pairs: a trace under
+  ``profile/``, an event file under ``tb/mi/``; tests/test_torch_profiling.py
+  checks what they hold).
 
 The JAX side runs in the pytest worker, the port side in a jax-free child
 (tests/torch_port_child.py).
@@ -75,9 +78,11 @@ STEM_ATOL = (1e-5, 1e-4, 4e-4)
 FAULTS = ("skipped_update", "epoch0_order", "t_total")
 # a later slice's knob -> the title of its ROADMAP queue A item
 KNOBS = {"mesh": "parallel/mesh.py and parallel/pipeline.py",
-         "checkpoint_format": "parallel/mesh.py and parallel/pipeline.py",
-         "profile_steps": "profiling.py and tbevents.py",
-         "tensorboard": "profiling.py and tbevents.py"}
+         "checkpoint_format": "parallel/mesh.py and parallel/pipeline.py"}
+# the profiling knobs -> what they write
+PROFILING_KNOBS = {"profile_steps": ("profile", ".pt.trace.json"),
+                   "tensorboard": (os.path.join("tb", "mi"),
+                                   "events.out.tfevents.")}
 
 
 class PairedDataset:
@@ -283,6 +288,18 @@ def test_later_slice_knobs_raise(results, knob):
     assert wrote == [], wrote
 
 
+@pytest.mark.parametrize("knob", list(PROFILING_KNOBS))
+def test_profiling_knobs_work(results, knob):
+    """``profile_steps`` 2 and ``tensorboard`` each through one Manager run
+    of one step: no error, a finite epoch loss, and the file the knob
+    writes."""
+    run = results[3]["profiling_knobs"][knob]
+    assert run["error"] == "no error", run
+    assert len(run["losses"]) == 1 and np.isfinite(run["losses"][0]), run
+    subdir, marker = PROFILING_KNOBS[knob]
+    assert len([f for f in run["written"] if marker in f]) == 1, run
+
+
 def _child(job):
     import torch
 
@@ -398,14 +415,25 @@ def _child(job):
         if knob == "mesh":
             kw[knob] = object()
         else:
-            cfg = cfg.replace(**{
-                "checkpoint_format": {"checkpoint_format": "orbax"},
-                "profile_steps": {"profile_steps": 2},
-                "tensorboard": {"tensorboard": True}}[knob])
+            cfg = cfg.replace(checkpoint_format="orbax")
         mgr = mi.MultiModalManager(cfg, bert_config=BertConfig(**BERT),
                                    load_pretrained_bert=False, device="cpu")
         msg = _error_of(lambda: mgr.train(None, num_epochs=1, **kw))
         return msg, sorted(os.listdir(save)) if os.path.exists(save) else []
+
+    def profiled(knob):
+        save = os.path.join(job, f"knob_{knob}")
+        cfg = TrainingConfig(save_directory=save, **CFG).replace(
+            **{"profile_steps": {"profile_steps": 2},
+               "tensorboard": {"tensorboard": True}}[knob])
+        mgr = mi.MultiModalManager(cfg, bert_config=BertConfig(**BERT),
+                                   load_pretrained_bert=False, device="cpu")
+        err = _error_of(lambda: mgr.train(
+            None, dataset=FakePairedDataset(n=4, img=256), num_epochs=1))
+        subdir = os.path.join(save, PROFILING_KNOBS[knob][0])
+        return {"error": err, "losses": _epoch_losses(save),
+                "written": sorted(os.listdir(subdir))
+                if os.path.isdir(subdir) else []}
 
     import logging
 
@@ -421,6 +449,7 @@ def _child(job):
                         for p in logs]
 
     meta["raises"] = {k: refused(k) for k in KNOBS}
+    meta["profiling_knobs"] = {k: profiled(k) for k in PROFILING_KNOBS}
     np.savez(os.path.join(job, "out.npz"), **out)
     with open(os.path.join(job, "out.json"), "w") as f:
         json.dump(meta, f)
