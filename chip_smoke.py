@@ -74,7 +74,8 @@ no arguments.  Phases:
    ``grad_cache_chunks``: B=256 in 4 chunks (under the critic's switch: no
    critic kernel) and B=2048 in 32 chunks (past it: each critic kernel once
    a step), one warm-up and one timed step each, ms/step, pairs/s, peak
-   memory against the B=64 L=128 step's, and the critic's own memory;
+   memory against the B=64 L=128 step's, the critic's own memory, and
+   the B=256 step under torch.profiler (device busy, idle share);
 8. ``BertConfig.remat``: two B=64 L=320 bf16 steps at dropout 0.1 with
    and without it, from one state (24 flash forward launches a step with
    it, 12 without, 12 backward either way; the same losses);
@@ -101,7 +102,7 @@ no arguments.  Phases:
    alone (forward + backward, B=64) with the kernel stem against the cuDNN
    stem in device ms, and one f32 tower call whose image requires a
    gradient (dx once, held against the cuDNN stem's image gradient);
-11. ``MultiModalManager.train`` over 512 in-memory compact pairs whose
+11. ``MultiModalManager.train`` over 256 in-memory compact pairs whose
    report lengths follow the bucket mix: one epoch, B=64, ``scan_steps``
    8, ``prefetch`` 2, 4 loader threads, ``pallas_stem``: steps against
    ``batches_per_epoch()``, epoch seconds and pairs/s from mi.jsonl, peak
@@ -195,12 +196,13 @@ no arguments.  Phases:
    losses of two Adam steps and the weights after the first (WORLD_*
    below says what is held and why); (b) MI pretraining from disk
    through ``mimm_tpu_torch.cli.multi_modal`` (bf16, ``pallas_stem``,
-   B=64, 2 epochs over a crop-cache corpus of 512 pairs written as phase
-   12's, the sharded checkpoint format): run A uninterrupted (the bf16
-   flash kernels and the stem's on each rank), run B with a SIGTERM to
+   B=64, 2 epochs over a crop-cache corpus of 448 pairs written as phase
+   12's, the sharded checkpoint format): run A uninterrupted, in the
+   world of (a), (d) and (e) (the bf16 flash kernels and the stem's on each
+   rank), run B with a SIGTERM to
    rank 1 alone (both ranks stop at the same step), run C resumed on A's
    bits in every tensor; world-2 pairs/s against a world of 1 through
-   the same entry point; seconds a sharded save and an async save's
+   the same entry point (one epoch); seconds a sharded save and an async save's
    return; (c) the
    converter's ``.bin`` files from A's sharded checkpoint load strict and
    equal rank 0's parameters; (d) the B=2048 GradCache step (32 chunks of
@@ -225,18 +227,36 @@ no arguments.  Phases:
    --mesh_shape model=2 --sequence_parallel true`` from disk (f32, 2
    epochs of one step): its checkpoint against the world's gathered
    state, one rank resuming epoch 2 from it;
-18. the ``kernels`` JSON line, the card line, and as the last line
+18. GPipe pipeline parallelism of the text tower (``parallel/
+   pipeline.py``; ``drive_pp``): a world of 2 ranks on ``{'pipe': 2}`` on
+   the one card, on phase 16's backend.  (a) the f32 L=320 step of phase
+   17 (a) at M = 4 microbatches (6 layers a stage), two Adam steps against
+   one rank: the image embeddings bit for bit, the text embeddings,
+   gradients by max |Δg| / max |g|, cosine and norm ratio, losses and the
+   weights' shares after step 1 (phase 17 (a)'s limits), the f32 flash
+   forward and backward 6 × 4 times a rank a step; (b) the bf16
+   production step at dropout 0.1 with remat, twice from one state: the
+   same bits, a finite loss, the flash forward 2 × 6 × 4 and the backward
+   6 × 4 times a rank; (c) each rank's resident text parameters and
+   moments against the stage rule and one rank's, its peak memory
+   (printed); (d) ``cli.multi_modal --mesh_shape pipe=2
+   --pipeline_microbatches 2`` from disk (f32, 2 epochs of one step): its
+   checkpoint against the world's gathered state in the plain layout, the
+   converter's ``.bin`` files loaded strict, one rank resuming epoch 2
+   from it;
+19. the ``kernels`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Every phase prints its host-clock seconds with the card's name and power
 limit as it ends.  Any failure raises and exits non-zero; without a card
 it exits before printing any result.  ``python3 chip_smoke.py --phase17``
-runs phases 1, 2 and 17 and phase 3's flash times alone, a development
-run that prints no result lines.
+(``--phase18``) runs phases 1, 2 and 17 (18) and phase 3's flash times
+alone, a development run that prints no result lines.
 """
 
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
 import copy
@@ -1149,7 +1169,9 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     under torch.profiler over ``iters`` calls, divided by ``iters``.  For
     work of tens of microseconds, where back-to-back calls timed by CUDA
     events also take in the host's time between launches.  The device's
-    activity alone is traced (``profile_call``)."""
+    activity alone is traced (``profile_call``).  A trace that recorded no
+    device time (late in a long run of profiler traces one did) is taken
+    again, up to three times, and then raises."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -1158,7 +1180,11 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         for _ in range(iters):
             fn()
 
-    return profile_call(None, calls, 0.0, "")["busy"] / iters
+    for _ in range(3):
+        busy = profile_call(None, calls, 0.0, "")["busy"]
+        if busy > 0:
+            return busy / iters
+    raise RuntimeError("torch.profiler recorded no device time in 3 traces")
 
 
 def attention_bound(shape, dtype, kind="fwd"):
@@ -2181,6 +2207,10 @@ def profile_train_steps(train: dict) -> None:
 GC_CONFIGS = ((256, 4), (2048, 32))
 GC_SEQ = 128
 GC_TIMED = 1
+# the step traced by torch.profiler: B=256 (~20 k kernels); tracing the
+# B=2048 step (~160 k) took 57.0 s of the run's limit on an NVIDIA H100
+# 80GB HBM3 at 700 W (its device busy then 2474.5 ms, idle share 0.600)
+GC_PROFILED = GC_CONFIGS[0]
 CRITIC_MEMORY_LIMIT = 2 ** 30
 
 
@@ -2298,6 +2328,7 @@ def drive_grad_cache(device, bert_kw=TRAIN_BERT, configs=GC_CONFIGS,
             if direct_peak is not None and not peak <= 2 * direct_peak:
                 raise AssertionError(f"GradCache peak {peak} > twice the "
                                      f"B=64 direct step's {direct_peak}")
+        if cuda and (batch, chunks) == GC_PROFILED:
             profile_call(f"GradCache step B={batch} in {chunks} chunks, "
                          f"L={seq}, ms/step above",
                          lambda: mi.make_mi_train_step(model, txs, cfg)(
@@ -2537,7 +2568,7 @@ def drive_fused_ffn(root: str, device, serve_kw=FFN_SERVE_BERT,
 
 STEM_BUCKETS = FFN_BUCKETS
 STEM_GC = (256, 4)           # GradCache (batch, chunks) at GC_SEQ
-TOWER_TIMED = 10
+TOWER_TIMED = 5         # 10 before the run's time limit bound
 # the image's gradient of an f32 eval tower call with the kernel stem,
 # against cuDNN's stem input gradient (``conv2d_input``) on the same
 # cotangent of the stem's output, max |Δ| over max |reference|: 72 f32
@@ -2816,7 +2847,7 @@ def drive_pallas_stem(device, bert_kw=TRAIN_BERT, batch=BATCH,
 
 # ---- phase 11: the Manager's epoch loop -------------------------------------
 
-MANAGER_PAIRS = 512
+MANAGER_PAIRS = 256     # 512 before the run's time limit bound
 MANAGER_WORKERS = 4
 
 
@@ -3092,8 +3123,8 @@ class _RunProbe:
                 sum(c.misses for c in self.caches))
 
 
-def _flat_tree(state) -> dict:
-    """The resume checkpoint's tree of ``state`` as {path: value}, on the
+def _flat(tree) -> dict:
+    """A resume checkpoint's tree as {path: value}, tensors copied to the
     CPU: every parameter, buffer, critic tensor, moment and count."""
     out = {}
 
@@ -3107,8 +3138,13 @@ def _flat_tree(state) -> dict:
         else:
             out[prefix] = node.detach().cpu().clone() \
                 if torch.is_tensor(node) else node
-    walk("", mi.mi_state_tree(state))
+    walk("", tree)
     return out
+
+
+def _flat_tree(state) -> dict:
+    """``_flat`` of ``state``'s resume checkpoint tree."""
+    return _flat(mi.mi_state_tree(state))
 
 
 def embedding_repeat(device, batch=BATCH, seq=SEQ, width=768,
@@ -4952,9 +4988,12 @@ def drive_host_and_profiling(root: str, device, bert_kw=BERT_BASE,
 # ---- phase 16: data parallelism, a world of 2 ranks on the one card --------
 
 WORLD = 2
-WORLD_PAIRS = 384      # (b)'s corpus: by the bucket mix, and WORLD_LONG more
+WORLD_PAIRS = 320      # (b)'s corpus: by the bucket mix, and WORLD_LONG more
 WORLD_LONG = 64        # in each of the 256 and 320 buckets: a batch of each
+# (5 steps an epoch: run B's agreed stop at dispatch 8 falls in epoch 2;
+# 384 pairs, 6 steps, before the run's time limit bound)
 WORLD_EPOCHS = 2
+WORLD_W1_EPOCHS = 1    # world 1's pairs/s, one epoch (the time limit)
 WORLD_SIGNAL_AFTER = 3     # run B: rank 1 alone sends itself SIGTERM here
 WORLD_TIMEOUT = 420        # seconds a world launch may take
 # what the ranks build: full width on the card (``drive_world(spec=)``
@@ -5129,15 +5168,13 @@ def _running_diff(a: dict, b: dict) -> float:
                 / b[n].abs().max().clamp_min(1e-30)).item() for n in b)
 
 
-def world_launch(root: str, name: str, task: str, n: int, spec: dict,
-                 *args: str, backend: str = "",
-                 timeout: float = WORLD_TIMEOUT) -> list:
+def world_start(root: str, name: str, task: str, n: int, spec: dict,
+                *args: str, backend: str = "",
+                timeout: float = WORLD_TIMEOUT) -> tuple:
     """Start ``n`` ranks of this script's ``--world-worker <job> <task>``
     with the MIMM_* variables of ``initialize_distributed`` (a
-    ``localhost:<port>`` coordinator) and wait; every rank is killed once
-    one fails or the time is up.  Returns each rank's json (the job
-    directory is ``<root>/<name>``); raises with the failed ranks' last
-    output."""
+    ``localhost:<port>`` coordinator), the job directory ``<root>/<name>``;
+    ``world_wait`` collects them, so the caller may work meanwhile."""
     import socket
 
     job = os.path.join(root, name)
@@ -5154,7 +5191,31 @@ def world_launch(root: str, name: str, task: str, n: int, spec: dict,
             [sys.executable, os.path.abspath(__file__), "--world-worker",
              job, task, backend, json.dumps(spec), *args], env=env,
             stdout=log, stderr=subprocess.STDOUT, cwd=REPO), log))
-    deadline = time.monotonic() + timeout
+    _RUNNING.append(procs)
+    return (job, name, task, procs, time.monotonic() + timeout)
+
+
+_RUNNING: list = []     # the ranks of started worlds not yet collected
+
+
+@atexit.register
+def _stop_worlds() -> None:
+    """Kill the ranks of every world still running when this process
+    exits (a phase failed while its world ran)."""
+    for procs in _RUNNING:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+
+
+def world_wait(world: tuple) -> list:
+    """Wait for a ``world_start`` world; every rank is killed once one
+    fails or the time is up.  Returns each rank's json; raises with the
+    failed ranks' last output."""
+    job, name, task, procs, deadline = world
+    _RUNNING.remove(procs)
     try:
         while any(p.poll() is None for p, _ in procs):
             if time.monotonic() > deadline or any(
@@ -5177,10 +5238,18 @@ def world_launch(root: str, name: str, task: str, n: int, spec: dict,
         raise RuntimeError(f"world {name} ({task}) failed (rank, rc): {bad}\n"
                            + "\n".join(tails))
     out = []
-    for rank in range(n):
+    for rank in range(len(procs)):
         with open(os.path.join(job, f"rank{rank}.json")) as f:
             out.append(json.load(f))
     return out
+
+
+def world_launch(root: str, name: str, task: str, n: int, spec: dict,
+                 *args: str, backend: str = "",
+                 timeout: float = WORLD_TIMEOUT) -> list:
+    """``world_start`` then ``world_wait``."""
+    return world_wait(world_start(root, name, task, n, spec, *args,
+                                  backend=backend, timeout=timeout))
 
 
 def world_equality_steps(mesh, device, spec: dict,
@@ -5354,10 +5423,11 @@ def _shares_line(sh: dict) -> str:
 def world_worker(job: str, task: str, backend: str, spec_json: str,
                  *args: str) -> int:
     """One rank of a world ``world_launch`` started: ``probe`` (the
-    backend's collectives), ``steps`` ((a), (d) and (e)) or ``cli`` (run
-    ``args[0]`` of (b) through the entry point), and phase 17's ``tp17``
-    (its corpus under ``args[0]``).  Writes ``rank<r>.json`` (and rank 0
-    the tensors the parent compares)."""
+    backend's collectives), ``steps`` ((a), (d) and (e), then (b)'s run A
+    in the same world, its corpus under ``args[0]``) or ``cli`` (run
+    ``args[0]`` of (b) through the entry point), phase 17's ``tp17`` and
+    phase 18's ``pp18`` (their corpora under ``args[0]``).  Writes
+    ``rank<r>.json`` (and rank 0 the tensors the parent compares)."""
     spec = json.loads(spec_json)
     device = spec["device"]
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5376,7 +5446,11 @@ def world_worker(job: str, task: str, backend: str, spec_json: str,
     if task == "tp17":
         out.update(tp_worker(job, mesh_lib.make_mesh({"model": TP_WORLD}),
                              dev, spec))
-        out["cli"] = tp_cli_world(job, args[0], backend, spec)
+        out["cli"] = world_cli_run(job, task, args[0], backend, spec)
+    elif task == "pp18":
+        out.update(pp_worker(job, mesh_lib.make_mesh({"pipe": PP_WORLD}),
+                             dev, spec))
+        out["cli"] = world_cli_run(job, task, args[0], backend, spec)
     elif task == "probe":
         x = torch.full((4,), float(mesh.rank + 1), device=dev)
         torch.distributed.all_reduce(x)
@@ -5399,6 +5473,9 @@ def world_worker(job: str, task: str, backend: str, spec_json: str,
             torch.save(saved, os.path.join(job, "steps.pt"))
     with open(os.path.join(job, f"rank{mesh.rank}.json"), "w") as f:
         json.dump(out, f)
+    if task == "steps":         # (b)'s run A in this world (its group)
+        return world_cli(os.path.join(args[0], "cli_A"), "A", args[0],
+                         backend, spec)
     torch.distributed.destroy_process_group()
     return 0
 
@@ -5425,7 +5502,8 @@ def world_cli(job: str, run: str, root: str, backend: str,
                                "W1": "run_w1"}[run])
     flags = ["--preset", "production", "--pallas_stem", "true",
              "--batch_size", str(spec["batch"]), "--seed", str(SEED),
-             "--num_train_epochs", str(WORLD_EPOCHS),
+             "--num_train_epochs",
+             str(WORLD_W1_EPOCHS if run == "W1" else WORLD_EPOCHS),
              "--keep_checkpoints", "1", "--prefetch", "2",
              "--data_loader_workers", str(spec["workers"]),
              "--image_dir", corpus["images"],
@@ -5493,11 +5571,14 @@ def world_cli(job: str, run: str, root: str, backend: str,
         return step
 
     mi.make_mi_step_body = observed
+    os.makedirs(job, exist_ok=True)
     for mod in (fa, sc, pc, ff):
         mod.reset_launch_counts()           # the mi_world path starts here
+    t0 = time.perf_counter()
     _, state = multi_modal.main(flags)
     _sync(spec["device"])
     info["launches"] = _all_launches()      # ... and ends here
+    info["seconds"] = time.perf_counter() - t0
     rank = mesh_lib.world_rank()
     info.update(rank=rank, size=mesh_lib.world_size(), steps=state.step,
                 backend=mesh_lib.backend_name(),
@@ -5549,18 +5630,37 @@ def drive_world(root: str, device, gc_loss=None, spec=None) -> dict:
                   f"world of 2 runs on gloo over CUDA tensors, chosen "
                   f"explicitly (--dist_backend gloo); a world of 1 runs on "
                   f"NCCL")
-    # ---- (a), (d), (e): world 2 -------------------------------------------
+    # ---- (a), (d), (e), then (b)'s run A: world 2 ---------------------------
+    corpus = write_cli_corpus(os.path.join(root, "corpus"), spec["pairs"],
+                              spec["long"], spec["cli_bert"]["vocab_size"],
+                              256, SEED + 53)
+    with open(os.path.join(corpus["bert"], "bert_config.json"), "w") as f:
+        json.dump(spec["cli_bert"], f)
+    with open(os.path.join(root, "corpus.json"), "w") as f:
+        json.dump(corpus, f)
     t0 = time.perf_counter()
-    steps = world_launch(root, "steps", "steps", WORLD, spec,
+    steps = world_launch(root, "steps", "steps", WORLD, spec, root,
                          backend=backend)
     steps_s = time.perf_counter() - t0
+    runs, seconds = {"A": []}, {}
+    for rank in range(WORLD):
+        with open(os.path.join(root, "cli_A", f"rank{rank}.json")) as f:
+            runs["A"].append(json.load(f))
+    seconds["A"] = runs["A"][0]["seconds"]
     world = torch.load(os.path.join(root, "steps", "steps.pt"),
                        weights_only=True)
     print(f"  world of 2 ({steps[0]['backend']}, {steps[0]['device']} and "
-          f"{steps[1]['device']}): (a), (d), (e) in {steps_s:.1f} s (host "
-          f"clock, process start included)")
-    with deterministic_cudnn():                     # as the ranks run
-        one, halves = world_equality_steps(None, device, spec, (1, WORLD))
+          f"{steps[1]['device']}): (a), (d), (e) and (b)'s run A in "
+          f"{steps_s:.1f} s (host clock, process start included; run A "
+          f"{runs['A'][0]['seconds']:.1f} s)")
+    # (b)'s run B (its seconds are no metric) runs while this process
+    # computes the references of (a), (d), (e): the same bits either way
+    t_b = time.perf_counter()
+    run_b = world_start(root, "cli_B", "cli", WORLD, spec, "B", root,
+                        backend=backend)
+    with deterministic_cudnn():                 # as the ranks run
+        one, halves = world_equality_steps(None, device, spec,
+                                           (1, WORLD))
     _empty_cache(device)
     if steps[1]["equality"]["losses"] != steps[0]["equality"]["losses"]:
         bad.append(f"(a) the ranks' losses differ: {steps}")
@@ -5691,22 +5791,15 @@ def drive_world(root: str, device, gc_loss=None, spec=None) -> dict:
     if emb_err > WORLD_EMB_TOL:
         bad.append(f"(e) embedding pass: {emb_err}")
     del world, one, halves, one_ae, halves_ae
+    runs["B"] = world_wait(run_b)
+    seconds["B"] = time.perf_counter() - t_b
     # ---- (b): the entry point from disk -----------------------------------
-    corpus = write_cli_corpus(os.path.join(root, "corpus"), spec["pairs"],
-                              spec["long"], spec["cli_bert"]["vocab_size"],
-                              256, SEED + 53)
-    with open(os.path.join(corpus["bert"], "bert_config.json"), "w") as f:
-        json.dump(spec["cli_bert"], f)
-    with open(os.path.join(root, "corpus.json"), "w") as f:
-        json.dump(corpus, f)
-    runs, seconds = {}, {}
-    for run, n, be in (("A", WORLD, backend), ("B", WORLD, backend),
-                       ("C", WORLD, backend), ("W1", 1, "")):
+    for run, n, be in (("C", WORLD, backend), ("W1", 1, "")):
         t0 = time.perf_counter()
         runs[run] = world_launch(root, f"cli_{run}", "cli", n, spec, run,
                                  root, backend=be)
         seconds[run] = time.perf_counter() - t0
-    per_epoch = runs["W1"][0]["steps"] // WORLD_EPOCHS
+    per_epoch = runs["W1"][0]["steps"] // WORLD_W1_EPOCHS
     pairs_s = {run: [per_epoch * batch / x
                      for x in runs[run][0]["train_seconds"]]
                for run in ("A", "W1")}
@@ -5743,7 +5836,8 @@ def drive_world(root: str, device, gc_loss=None, spec=None) -> dict:
           f"saves' and waits'; epoch 1 carries the warm-up)  [{card}]")
     print(f"  (b) runs A / B / C / W1: {seconds['A']:.1f} / "
           f"{seconds['B']:.1f} / {seconds['C']:.1f} / {seconds['W1']:.1f} s "
-          f"(host clock, process start included); host seconds in the step "
+          f"(host clock, process start included but A's, which ran in the "
+          f"world of (a), (d), (e)); host seconds in the step "
           f"calls, rank 0 of A: {runs['A'][0]['steps_seconds']:.3f}; "
           f"seconds a sharded save (run A, by rank): "
           f"{[[round(x, 3) for x in r['saves']] for r in runs['A']]}; an "
@@ -5818,7 +5912,6 @@ TP_WORLD = 2
 # each of the 256 and 320 buckets, one bucket of SEQ: a TP + SP step on
 # gloo is the run's dearest, ~10 s)
 TP_LONG = BATCH // 2
-TP_EPOCHS = 2
 # NCCL refuses two ranks on one device (phase 16): gloo over CUDA tensors
 TP_BACKEND = "gloo"
 # what the ranks build: full width on the card (``drive_tp(spec=)`` takes
@@ -6241,16 +6334,40 @@ def tp_worker(job: str, mesh_tp, dev, spec: dict) -> dict:
     return out
 
 
-def _tp_cli_flags(run: str, root: str, spec: dict, backend: str) -> list:
-    """(e)'s flags: run "TP" a world of 2 with ``--mesh_shape model=2
-    --sequence_parallel true``, run "R1" one process resuming from the
-    world's first checkpoint; f32, ``pallas_stem``, one bucket of SEQ,
-    TP_EPOCHS epochs of one step, every epoch's checkpoint kept."""
-    with open(os.path.join(root, "corpus17.json")) as f:
+# phase 17 (e) and phase 18 (d): a world's MI run from disk through the
+# entry point (f32, ``pallas_stem``, one bucket of SEQ, WORLD_CLI_EPOCHS
+# epochs of one step, every epoch's checkpoint kept), and one rank resuming
+# its epoch 2 from the world's first checkpoint
+WORLD_CLI_EPOCHS = 2
+WORLD_CLI_MESH = {"tp17": ["--mesh_shape", f"model={TP_WORLD}",
+                           "--sequence_parallel", "true"],
+                  "pp18": ["--mesh_shape", "pipe=2",
+                           "--pipeline_microbatches", "2"]}
+
+
+def write_world_cli_corpus(root: str, task: str, spec: dict, seed: int,
+                           bert: dict) -> None:
+    """``task``'s corpus (``write_cli_corpus``: ``spec["long"]`` pairs in
+    each of the 256 and 320 buckets) under ``<root>/corpus-<task>``, with
+    ``bert`` as its ``bert_config.json``."""
+    corpus = write_cli_corpus(os.path.join(root, f"corpus-{task}"), 0,
+                              spec["long"], bert["vocab_size"], 256, seed)
+    with open(os.path.join(corpus["bert"], "bert_config.json"), "w") as f:
+        json.dump(bert, f)
+    with open(os.path.join(root, f"corpus-{task}.json"), "w") as f:
+        json.dump(corpus, f)
+
+
+def _world_cli_flags(task: str, run: str, root: str, spec: dict,
+                     backend: str) -> list:
+    """The flags of ``task``'s run "world" (a world of 2 with
+    WORLD_CLI_MESH[task]) or "R1" (one process resuming from the world's
+    ``mi_epoch1.ckpt``), saving under ``<root>/run-<task>-<run>``."""
+    with open(os.path.join(root, f"corpus-{task}.json")) as f:
         corpus = json.load(f)
     flags = ["--preset", "production", "--compute_dtype", "float32",
              "--pallas_stem", "true", "--batch_size", str(spec["batch"]),
-             "--seed", str(SEED), "--num_train_epochs", str(TP_EPOCHS),
+             "--seed", str(SEED), "--num_train_epochs", str(WORLD_CLI_EPOCHS),
              "--keep_checkpoints", "0", "--prefetch", "2",
              "--seq_buckets", str(spec["seq"]),
              "--data_loader_workers", str(spec["workers"]),
@@ -6259,54 +6376,83 @@ def _tp_cli_flags(run: str, root: str, spec: dict, backend: str) -> list:
              "--dataset_metadata", corpus["metadata"],
              "--decoded_crop_cache", corpus["cache"],
              "--bert_pretrained_dir", corpus["bert"],
-             "--save_directory", os.path.join(root, f"run_{run.lower()}"),
+             "--save_directory", os.path.join(root, f"run-{task}-{run}"),
              "--device", spec["device"]]
-    if run == "TP":
-        flags += ["--mesh_shape", f"model={TP_WORLD}",
-                  "--sequence_parallel", "true"]
+    if run == "world":
+        flags += WORLD_CLI_MESH[task]
         if backend:
             flags += ["--dist_backend", backend]
     else:
-        flags += ["--resume_from", os.path.join(root, "run_tp",
+        flags += ["--resume_from", os.path.join(root, f"run-{task}-world",
                                                 "mi_epoch1.ckpt")]
     return flags
 
 
-def tp_cli_world(job: str, root: str, backend: str, spec: dict) -> dict:
-    """(e)'s run "TP" through ``mimm_tpu_torch.cli.multi_modal.main`` on
-    this rank, in the world ``tp_worker`` ran in (the entry point uses the
+def world_cli_run(job: str, task: str, root: str, backend: str,
+                  spec: dict) -> dict:
+    """``task``'s run "world" through ``mimm_tpu_torch.cli.multi_modal.main``
+    on this rank, in the world the task ran in (the entry point uses the
     group it finds); rank 0 keeps the whole final state.  Returns the
     run's launches, seconds and steps."""
     from mimm_tpu_torch.cli import multi_modal
 
     torch.backends.cudnn.deterministic = True
     for mod in (fa, sc, pc, ff):
-        mod.reset_launch_counts()           # the tp_cli path starts here
+        mod.reset_launch_counts()   # the tp_cli / pp_cli path starts here
     t0 = time.perf_counter()
-    _, state = multi_modal.main(_tp_cli_flags("TP", root, spec, backend))
+    _, state = multi_modal.main(_world_cli_flags(task, "world", root, spec,
+                                                 backend))
     _sync(spec["device"])
     info = {"launches": _all_launches(),    # ... and ends here
             "seconds": time.perf_counter() - t0, "steps": state.step}
-    tree = _flat_tree(state)                # every rank: TP pieces gathered
+    tree = _flat_tree(state)        # every rank: TP pieces, stages gathered
     if mesh_lib.world_rank() == 0:
         torch.save(tree, os.path.join(job, "tree.pt"))
     return info
 
 
-def tp_cli_resume(root: str, spec: dict) -> dict:
-    """(e)'s run "R1" in this process: one rank resuming epoch 2 from the
-    world's ``mi_epoch1.ckpt``; its whole final state."""
+def world_cli_resume(task: str, root: str, spec: dict) -> dict:
+    """``task``'s run "R1" in this process, then the comparisons: the
+    world's last checkpoint against its gathered final state (the entries
+    that differ, whole shapes), and the resumed epoch against the
+    world's (epoch losses; the weights' largest |Δ| and share > 1e-6).
+    Returns them with the seconds and the checkpoint's tree."""
     from mimm_tpu_torch import preempt
     from mimm_tpu_torch.cli import multi_modal
 
+    t0 = time.perf_counter()
     try:
         with deterministic_cudnn():
-            _, state = multi_modal.main(_tp_cli_flags("R1", root, spec, ""))
+            _, state = multi_modal.main(_world_cli_flags(task, "R1", root,
+                                                         spec, ""))
         _sync(spec["device"])
-        return _flat_tree(state)
+        r1_tree = _flat_tree(state)
     finally:
         preempt.uninstall()
         preempt.clear()
+    seconds = time.perf_counter() - t0
+    world = torch.load(os.path.join(root, task, "tree.pt"), weights_only=True)
+    last = os.path.join(root, f"run-{task}-world",
+                        f"mi_epoch{WORLD_CLI_EPOCHS}.ckpt")
+    saved = _flat(ckpt.load_checkpoint(last))
+    differ = sorted(set(world) ^ set(saved)) + [
+        k for k in world if k in saved and not (
+            torch.equal(world[k], saved[k]) if torch.is_tensor(world[k])
+            else world[k] == saved[k])]
+    params = [k for k in world if torch.is_tensor(world[k])
+              and world[k].is_floating_point() and "_opt/" not in k
+              and "running" not in k]
+    d = torch.cat([(world[k] - r1_tree[k]).abs().reshape(-1) for k in params])
+    return {"seconds": seconds, "last": last, "saved": saved,
+            "entries": len(world), "differ": differ,
+            "whole": all(torch.is_tensor(v) and v.shape == saved[k].shape
+                         for k, v in world.items()
+                         if torch.is_tensor(v) and k in saved),
+            "r1_max": d.max().item(),
+            "r1_share": (d > 1e-6).float().mean().item(),
+            "loss": {run: [r["epoch_loss"] for r in _jsonl(os.path.join(
+                root, f"run-{task}-{run}")) if "epoch_loss" in r]
+                for run in ("world", "R1")}}
 
 
 def _tp_compare_line(c: dict) -> str:
@@ -6329,25 +6475,12 @@ def drive_tp(root: str, device, backend: str = "gloo", spec=None) -> dict:
     started = time.perf_counter()
     bad = []
     # ---- the world: (a)-(d), then (e)'s run on the entry point ----------------
-    corpus = write_cli_corpus(os.path.join(root, "corpus17"), 0,
-                              spec["long"], spec["cli_bert"]["vocab_size"],
-                              256, SEED + 75)
-    with open(os.path.join(corpus["bert"], "bert_config.json"), "w") as f:
-        json.dump(spec["cli_bert"], f)
-    with open(os.path.join(root, "corpus17.json"), "w") as f:
-        json.dump(corpus, f)
+    write_world_cli_corpus(root, "tp17", spec, SEED + 75, spec["cli_bert"])
     t0 = time.perf_counter()
-    ranks = world_launch(root, "tp17", "tp17", TP_WORLD, spec, root,
-                         backend=backend)
-    world_s = time.perf_counter() - t0
-    got = [torch.load(os.path.join(root, "tp17", f"tp17-rank{r}.pt"),
-                      weights_only=True) for r in range(TP_WORLD)]
-    print(f"  world of {TP_WORLD} ({ranks[0]['backend']}, "
-          f"{ranks[0]['device']} and {ranks[1]['device']}): {world_s:.1f} s "
-          f"(host clock, process start included; (a) + (b) "
-          f"{ranks[0]['tp_seconds']:.1f} s)")
-    # ---- one rank ----------------------------------------------------------------
-    t0 = time.perf_counter()
+    world = world_start(root, "tp17", "tp17", TP_WORLD, spec, root,
+                        backend=backend)
+    # ---- one rank, while the world runs (the same bits either way) --------------
+    t1 = time.perf_counter()
     with deterministic_cudnn():
         one = tp_steps(None, device, spec)
         _empty_cache(device)
@@ -6355,7 +6488,16 @@ def drive_tp(root: str, device, backend: str = "gloo", spec=None) -> dict:
         _empty_cache(device)
         ffn1 = tp_ffn_layer(None, device, spec)
         _empty_cache(device)
-    one_s = time.perf_counter() - t0
+    one_s = time.perf_counter() - t1
+    ranks = world_wait(world)
+    world_s = time.perf_counter() - t0
+    got = [torch.load(os.path.join(root, "tp17", f"tp17-rank{r}.pt"),
+                      weights_only=True) for r in range(TP_WORLD)]
+    print(f"  world of {TP_WORLD} ({ranks[0]['backend']}, "
+          f"{ranks[0]['device']} and {ranks[1]['device']}): {world_s:.1f} s "
+          f"(host clock, process start included; (a) + (b) "
+          f"{ranks[0]['tp_seconds']:.1f} s; one rank's references beside "
+          f"it)")
     # ---- (a) ------------------------------------------------------------------
     mine = got[0]["a"]
     c = _compare(dict(mine, running=mine["snaps"][0]["batch_stats"]),
@@ -6471,61 +6613,30 @@ def drive_tp(root: str, device, backend: str = "gloo", spec=None) -> dict:
             if z["differ"] or z["losses"] != rk["ae"]["replicated"]["losses"]:
                 bad.append(f"(d) rank {r} AE {mode}: {z}")
     # ---- (e): the entry point ----------------------------------------------------
-    runs = {"TP": [rk["cli"] for rk in ranks]}
-    seconds = {"TP": runs["TP"][0]["seconds"]}
-    t0 = time.perf_counter()
-    r1_tree = tp_cli_resume(root, spec)
-    seconds["R1"] = time.perf_counter() - t0
-    tp_tree = torch.load(os.path.join(root, "tp17", "tree.pt"),
-                         weights_only=True)
-    last = os.path.join(root, "run_tp", f"mi_epoch{TP_EPOCHS}.ckpt")
-    saved = {}
-
-    def walk(prefix, node):
-        if isinstance(node, dict):
-            for k, v in node.items():
-                walk(f"{prefix}/{k}", v)
-        elif isinstance(node, list):
-            for i, v in enumerate(node):
-                walk(f"{prefix}/{i}", v)
-        else:
-            saved[prefix] = node
-    walk("", ckpt.load_checkpoint(last))
-    ckpt_differ = [k for k in tp_tree if not (
-        torch.equal(tp_tree[k], saved[k]) if torch.is_tensor(tp_tree[k])
-        else tp_tree[k] == saved[k])]
-    whole = all(torch.is_tensor(v) and v.shape == saved[k].shape
-                for k, v in tp_tree.items() if torch.is_tensor(v))
-    params = [k for k in tp_tree if torch.is_tensor(tp_tree[k])
-              and tp_tree[k].is_floating_point() and "_opt/" not in k
-              and "running" not in k]
-    r1_d = torch.cat([(tp_tree[k] - r1_tree[k]).abs().reshape(-1)
-                      for k in params])
-    r1_max, r1_share = r1_d.max().item(), (r1_d > 1e-6).float().mean().item()
-    loss = {run: [r["epoch_loss"] for r in _jsonl(
-        os.path.join(root, f"run_{run.lower()}")) if "epoch_loss" in r]
-        for run in ("TP", "R1")}
-    print(f"  (e) cli.multi_modal --mesh_shape model={TP_WORLD} "
-          f"--sequence_parallel true (f32, pallas_stem, "
-          f"{2 * spec['long']} pairs, {runs['TP'][0]['steps'] // TP_EPOCHS} "
-          f"steps an epoch, {TP_EPOCHS} epochs) in the world above in "
-          f"{seconds['TP']:.1f} s (host clock), one rank resuming epoch 2 "
-          f"from its mi_epoch1.ckpt in this process in "
-          f"{seconds['R1']:.1f} s; "
-          f"mi_epoch{TP_EPOCHS}.ckpt against the world's gathered state: "
-          f"{len(tp_tree)} entries, {len(ckpt_differ)} differ, whole tensors "
-          f"{whole}; epoch losses world {loss['TP']}, one rank "
-          f"{loss['R1']} (held: epoch 2 within (a)'s {TP_LOSS2:.1e}); "
-          f"weights after epoch 2 max |Δ| {r1_max:.2e}, share > 1e-6 "
-          f"{r1_share:.2e} (held: {STEP_FLIP_SHARE:.0e}); launches by rank "
-          f"{[r['launches'] for r in runs['TP']]}  [{card}]")
-    if ckpt_differ or not whole:
+    runs = [rk["cli"] for rk in ranks]
+    e = world_cli_resume("tp17", root, spec)
+    print(f"  (e) cli.multi_modal {' '.join(WORLD_CLI_MESH['tp17'])} (f32, "
+          f"pallas_stem, {2 * spec['long']} pairs, "
+          f"{runs[0]['steps'] // WORLD_CLI_EPOCHS} steps an epoch, "
+          f"{WORLD_CLI_EPOCHS} epochs) in the world above in "
+          f"{runs[0]['seconds']:.1f} s (host clock), one rank resuming epoch "
+          f"2 from its mi_epoch1.ckpt in this process in {e['seconds']:.1f} "
+          f"s; mi_epoch{WORLD_CLI_EPOCHS}.ckpt against the world's gathered "
+          f"state: {e['entries']} entries, {len(e['differ'])} differ, whole "
+          f"tensors {e['whole']}; epoch losses world {e['loss']['world']}, "
+          f"one rank {e['loss']['R1']} (held: epoch 2 within (a)'s "
+          f"{TP_LOSS2:.1e}); weights after epoch 2 max |Δ| "
+          f"{e['r1_max']:.2e}, share > 1e-6 {e['r1_share']:.2e} (held: "
+          f"{STEP_FLIP_SHARE:.0e}); launches by rank "
+          f"{[r['launches'] for r in runs]}  [{card}]")
+    if e["differ"] or not e["whole"]:
         bad.append(f"(e) the checkpoint against the world's state: "
-                   f"{ckpt_differ[:3]}")
-    if len(loss["R1"]) != 1 or abs(loss["R1"][0] - loss["TP"][-1]) > \
-            TP_LOSS2 or r1_share > STEP_FLIP_SHARE:
+                   f"{e['differ'][:3]}")
+    if len(e["loss"]["R1"]) != 1 or abs(e["loss"]["R1"][0]
+                                        - e["loss"]["world"][-1]) > \
+            TP_LOSS2 or e["r1_share"] > STEP_FLIP_SHARE:
         bad.append(f"(e) one rank's resumed epoch against the world's: "
-                   f"{loss}, {r1_max}, {r1_share}")
+                   f"{e['loss']}, {e['r1_max']}, {e['r1_share']}")
     seconds_all = time.perf_counter() - started
     print(f"  phase 17: {seconds_all:.1f} s (host clock; one rank's "
           f"references {one_s:.1f} s)  [{card}]")
@@ -6538,7 +6649,7 @@ def drive_tp(root: str, device, backend: str = "gloo", spec=None) -> dict:
         for z in rk["zero"].values():
             zero.update(z["launches"])
     cli = collections.Counter()
-    for r in runs["TP"]:
+    for r in runs:
         cli.update(r["launches"])
     ffn = collections.Counter()
     for rk in ranks:
@@ -6546,6 +6657,348 @@ def drive_tp(root: str, device, backend: str = "gloo", spec=None) -> dict:
     return {"tp_world": dict(count("a")), "sp_world": dict(count("b")),
             "zero_world": dict(zero), "tp_cli": dict(cli),
             "tp_ffn": dict(ffn), "seconds": seconds_all}
+
+
+# ---- phase 18: GPipe pipeline parallelism of the text tower ---------------
+
+PP_WORLD = 2
+PP_MICRO = 4            # (a), (b): M, 16 rows a microbatch at B = 64
+# (a) {'pipe': 2} against one rank, f32 L=320 at dropout 0, deterministic
+# cuDNN on both sides: each rank runs the image tower whole (its
+# embeddings bit for bit one rank's), and the text tower's layers run on
+# microbatches of B/M rows, whose products cuBLAS may sum in another order
+# than the whole batch's; the [CLS] rows then differ by f32 rounding,
+# which the cancelling DV gradient magnifies as in phase 17 (a).  Held to
+# phase 17 (a)'s limits: the text embeddings TP_EMB, the gradients TP_GRAD /
+# TP_COS / TP_NORM, step 1's loss phase 5's 1e-5 and step 2's TP_LOSS2,
+# the shares moved after Adam step 1 WORLD_HALVES_SHARE.  Each rank
+# launches the f32 flash forward and backward once per layer of its stage
+# and microbatch: n/S × M a step.  (b) the bf16 production step at dropout
+# 0.1 with remat: two runs give the same bits, the flash forward 2 × n/S ×
+# M a step (remat recomputes it), the backward n/S × M.  (c) each rank's
+# resident text parameters and moments: its stage's layers and the
+# replicated rest, whole, counted against that rule.  (d) the entry point
+# from disk: the checkpoint is the world's gathered state in the plain
+# layout, and one rank resumes its epoch 2 within phase 17 (e)'s limits.
+
+
+@contextlib.contextmanager
+def _captured_embeddings():
+    """Inside, the first two tensors the MI step hands
+    ``parallel.mesh.gather_rows`` (the image and the text embeddings, with
+    a mesh or without) are kept, float32 on the CPU, in the yielded
+    dict."""
+    seen = []
+    real = mesh_lib.gather_rows
+
+    def gather(x, mesh):
+        if len(seen) < 2:
+            seen.append(x.detach().float().cpu().clone())
+        return real(x, mesh)
+
+    mesh_lib.gather_rows = gather
+    out = {}
+    try:
+        yield out
+    finally:
+        mesh_lib.gather_rows = real
+        out.update(zip(("image", "text"), seen))
+
+
+def _pp_resident(state, mesh) -> dict:
+    """This rank's bytes of text parameters and moments, counted, by the
+    stage rule (its stage's layers and the replicated rest, whole) and for
+    one rank (every tensor whole)."""
+    params = dict(state.model.text_model.named_parameters())
+    opt = state.txt_opt
+    counted = sum(p.numel() * p.element_size() for p in params.values()) \
+        + sum(t.numel() * t.element_size()
+              for part in (opt.mu, opt.nu) for t in part.values())
+    if state.layout is None:
+        return {"counted": counted, "rule": counted, "one_rank": counted}
+    layout = state.layout.groups["text_model"]
+    rule = one = 0
+    for n, p in params.items():
+        size = p.element_size() + opt.mu[n].element_size() \
+            + opt.nu[n].element_size()
+        numel = math.prod(layout.shapes[n])
+        one += numel * size
+        if layout.pipe[n] in (None, mesh.pipe_rank):
+            rule += numel * size
+    return {"counted": counted, "rule": rule, "one_rank": one}
+
+
+def pp_steps(mesh, device, spec: dict) -> dict:
+    """(a) / (c): phase 17 (a)'s f32 L=320 step (production preset,
+    ``pallas_stem``, dropout 0) from its seeded weights and batches,
+    pipelined over ``mesh``'s 'pipe' axis at M = PP_MICRO (one rank with
+    ``mesh`` None): two Adam steps, their losses, whole states and kernel
+    launches, step 1's gradients (the stages' layers gathered) and
+    embeddings, the rank's resident text bytes and peak memory."""
+    bc = BertConfig(**{**spec["bert_kw"], "hidden_dropout_prob": 0.0,
+                       "attention_probs_dropout_prob": 0.0})
+    batch = spec["batch"]
+    cfg = TrainingConfig.production(compute_dtype="float32", pallas_stem=True,
+                                    pipeline_microbatches=PP_MICRO)
+    data = _tp_data(spec, bc, device)
+    txs = mi.make_optimizers(cfg, steps_per_epoch=200_000 // batch)
+    taps = {"image": {}, "text": {}, "critic": {}}
+    txs = mi.MIOptimizers(**{k: _recording(getattr(txs, k), taps[g])
+                             for k, g in (("img", "image"), ("txt", "text"),
+                                          ("mi", "critic"))})
+    model = mi.build_joint_model(cfg, bc, device=device)
+    state = mesh_lib.shard_mi_state(mesh, mi.create_mi_state(
+        model, cfg, txs, torch.Generator().manual_seed(SEED + 63)))
+    out = {"losses": [], "snaps": [], "resident": _pp_resident(state, mesh)}
+    step = mi.make_mi_train_step(model, txs, cfg, mesh=mesh)
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    for mod in (fa, sc, pc, ff):
+        mod.reset_launch_counts()      # the pp world path starts here
+    t0 = time.perf_counter()
+    with _captured_embeddings() as emb:
+        for d in data:
+            state, loss = step(state, d)
+            out["losses"].append(loss.item())
+            out["snaps"].append(_tree_snap(state))
+    _sync(device)
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = _all_launches()          # ... and ends here
+    out["peak"] = torch.cuda.max_memory_allocated(device) \
+        if torch.device(device).type == "cuda" else 0
+    if state.layout is not None:      # step 1's stage layers, whole
+        layout = state.layout.groups["text_model"]
+        taps["text"] = {n: t.cpu() for n, t in mesh_lib.gather_stages(
+            {n: t.to(device) for n, t in taps["text"].items()}, layout.pipe,
+            layout.shapes, mesh).items()}
+    out.update(grads=taps, emb=emb)
+    return out
+
+
+def pp_remat_steps(mesh, device, spec: dict) -> dict:
+    """(b): the bf16 production step at dropout 0.1 with remat, pipelined
+    at M = PP_MICRO, twice from the same seeded state and batch: each
+    run's loss, whole state after the step and launches."""
+    bc = BertConfig(**{**spec["bert_kw"], "remat": True})
+    cfg = TrainingConfig.production(pipeline_microbatches=PP_MICRO)
+    d = _tp_data(spec, bc, device)[0]
+    runs = []
+    for _ in range(2):
+        model = mi.build_joint_model(cfg, bc, device=device)
+        txs = mi.make_optimizers(cfg, steps_per_epoch=200_000 // spec["batch"])
+        state = mesh_lib.shard_mi_state(mesh, mi.create_mi_state(
+            model, cfg, txs, torch.Generator().manual_seed(SEED + 81)))
+        step = mi.make_mi_train_step(model, txs, cfg, mesh=mesh)
+        for mod in (fa, sc, pc, ff):
+            mod.reset_launch_counts()      # the pp remat path starts here
+        state, loss = step(state, d)
+        _sync(device)
+        launches = _all_launches()         # ... and ends here
+        runs.append({"loss": loss.item(), "launches": launches,
+                     "snap": _tree_snap(state)})
+        del model, state, step
+        _empty_cache(device)
+    return {"losses": [r["loss"] for r in runs],
+            "launches": [r["launches"] for r in runs],
+            "differ": _snap_differ(runs[1]["snap"], runs[0]["snap"])}
+
+
+def pp_worker(job: str, mesh, dev, spec: dict) -> dict:
+    """The 'pp18' task of a world of 2 on ``{'pipe': 2}``: (a) with (c)'s
+    bytes, then (b).  Rank 0 keeps (a)'s tensors for the parent."""
+    out = {}
+    with deterministic_cudnn():
+        a = pp_steps(mesh, dev, spec)
+        _empty_cache(dev)
+        out["a"] = {k: a[k] for k in ("losses", "launches", "seconds",
+                                      "resident", "peak")}
+        if mesh_lib.world_rank() == 0:
+            torch.save({k: a[k] for k in ("grads", "emb", "losses", "snaps")},
+                       os.path.join(job, "pp18-a.pt"))
+        del a
+        t0 = time.perf_counter()
+        out["b"] = pp_remat_steps(mesh, dev, spec)
+        out["b"]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def drive_pp(root: str, device, backend: str = "gloo", spec=None) -> dict:
+    """Phase 18: a world of 2 ranks on ``{'pipe': 2}`` on the one card
+    (phase 16's backend): (a) the f32 step pipelined at M = PP_MICRO
+    against one rank, with the flash launches of each stage; (b) the bf16
+    step at dropout 0.1 with remat, twice; (c) each rank's resident text
+    bytes against the stage rule, its peak memory; (d) ``cli.multi_modal
+    --mesh_shape pipe=2 --pipeline_microbatches 2`` from disk:
+    its checkpoint against the world's gathered state, the plain layout,
+    the converter's ``.bin`` files loaded strict, one rank resuming epoch
+    2 from it.  Returns the paths' launches and the numbers."""
+    from mimm_tpu_torch.tools import convert_checkpoint
+
+    spec = dict(TP_SPEC, device=str(device), **(spec or {}))
+    cuda = torch.device(device).type == "cuda"
+    card = card_line() if cuda else "cpu"
+    started = time.perf_counter()
+    bad = []
+    # dropout 0: the pipeline draws its masks per (layer, microbatch), one
+    # rank from one stream (parallel/pipeline.py), so (d)'s one-rank epoch
+    # equals the world's only without dropout, as JAX's tests compare them
+    write_world_cli_corpus(root, "pp18", spec, SEED + 85, dict(
+        spec["cli_bert"], hidden_dropout_prob=0.0,
+        attention_probs_dropout_prob=0.0))
+    t0 = time.perf_counter()
+    world = world_start(root, "pp18", "pp18", PP_WORLD, spec, root,
+                        backend=backend)
+    # ---- one rank, while the world runs (the same bits either way) --------------
+    t1 = time.perf_counter()
+    with deterministic_cudnn():
+        one = pp_steps(None, device, spec)
+    _empty_cache(device)
+    one_s = time.perf_counter() - t1
+    ranks = world_wait(world)
+    world_s = time.perf_counter() - t0
+    got = torch.load(os.path.join(root, "pp18", "pp18-a.pt"),
+                     weights_only=True)
+    print(f"  world of {PP_WORLD} on {{'pipe': {PP_WORLD}}} "
+          f"({ranks[0]['backend']}, {ranks[0]['device']} and "
+          f"{ranks[1]['device']}): {world_s:.1f} s (host clock, process "
+          f"start included; one rank's references beside it)")
+    # ---- (a) ------------------------------------------------------------------
+    layers = spec["bert_kw"]["num_hidden_layers"]
+    per = layers // PP_WORLD * PP_MICRO         # launches a stage a step
+    c = _compare(dict(got, running=got["snaps"][0]["batch_stats"]),
+                 dict(one, running=one["snaps"][0]["batch_stats"]))
+    emb = {g: ((got["emb"][g] - one["emb"][g]).abs().max()
+               / one["emb"][g].abs().max().clamp_min(1e-30)).item()
+           for g in one["emb"]}
+    image_equal = torch.equal(got["emb"]["image"], one["emb"]["image"])
+    moved = [{g: v for g, v in _step_diff((0.0, got["snaps"][s]),
+                                          (0.0, one["snaps"][s])).items()
+              if g not in ("loss_diff", "loss", "moments")}
+             for s in range(2)]
+    print(f"  (a) {{'pipe': {PP_WORLD}}} GPipe at M={PP_MICRO}, f32 "
+          f"L={spec['seq']} pallas_stem at dropout 0, against one rank "
+          f"(deterministic cuDNN): image embeddings bit for bit "
+          f"{image_equal}; embeddings max |Δ| / max |emb| "
+          + ", ".join(f"{g} {v:.2e}" for g, v in emb.items())
+          + f" (text held to {TP_EMB:.0e}); gradients max |Δg| / max |g| "
+          f"(cosine, norm ratio): {_tp_compare_line(c)} (held: "
+          f"{TP_GRAD:.0e}, cosine at least {TP_COS:.7g}, norm ratio within "
+          f"{TP_NORM}); losses {got['losses']} against {one['losses']} "
+          f"(held: {STEP_LOSS_ATOL:.0e}, then {TP_LOSS2:.1e}); running "
+          f"statistics {c['running']:.2e}")
+    for s in range(2):
+        print(f"  (a) after Adam step {s + 1}, max |dparam|, share > 1e-6: "
+              f"{_shares_line(moved[s])}"
+              + (f" (held: shares {WORLD_HALVES_SHARE})" if s == 0
+                 else " (not held)"))
+    if not image_equal:
+        bad.append("(a) image embeddings differ from one rank's")
+    if any(v[1] > WORLD_HALVES_SHARE[g] for g, v in moved[0].items()):
+        bad.append(f"(a) weights after Adam step 1: {moved[0]}")
+    if emb["text"] > TP_EMB:
+        bad.append(f"(a) text embeddings {emb}")
+    if any(v > TP_GRAD for v in c["grad"].values()) or any(
+            cos < TP_COS or not TP_NORM[0] <= ratio <= TP_NORM[1]
+            for cos, ratio in c["agree"].values()):
+        bad.append(f"(a) gradients against one rank {c['grad']} "
+                   f"{c['agree']}")
+    if c["loss"][0] > STEP_LOSS_ATOL or c["loss"][1] > TP_LOSS2:
+        bad.append(f"(a) losses {got['losses']} against {one['losses']}")
+    if c["running"] > WORLD_BN_RTOL:
+        bad.append(f"(a) running statistics {c['running']}")
+    want = {fa.KERNELS[torch.float32]: 2 * per,
+            fa.BWD_KERNELS[torch.float32]: 2 * per}
+    for r, rk in enumerate(ranks):
+        launches = rk["a"]["launches"]
+        print(f"  (a) rank {r}: 2 steps in {rk['a']['seconds']:.3f} s (host "
+              f"clock), launches {launches} (flash: {per} a step each way: "
+              f"{layers // PP_WORLD} layers x {PP_MICRO} microbatches)")
+        if cuda and any(launches.get(n, 0) != k for n, k in want.items()):
+            bad.append(f"(a) rank {r} launched {launches}, want {want}")
+    print(f"  (a) one rank: 2 steps in {one['seconds']:.3f} s, launches "
+          f"{one['launches']}")
+    # ---- (b) ------------------------------------------------------------------
+    want_b = {fa.KERNELS[torch.bfloat16]: 2 * per,
+              fa.BWD_KERNELS[torch.bfloat16]: per}
+    for r, rk in enumerate(ranks):
+        b = rk["b"]
+        print(f"  (b) rank {r}: bf16 production step at dropout 0.1 with "
+              f"remat, M={PP_MICRO}, twice from one state: losses "
+              f"{b['losses']}, tensors differing {len(b['differ'])} "
+              f"{b['differ'][:3]}, launches {b['launches']} (flash forward "
+              f"{2 * per} with remat, backward {per}); {b['seconds']:.1f} s")
+        if b["differ"] or b["losses"][0] != b["losses"][1] \
+                or not math.isfinite(b["losses"][0]):
+            bad.append(f"(b) rank {r}: {b['losses']}, {b['differ'][:3]}")
+        if cuda and any(l.get(n, 0) != k for l in b["launches"]
+                        for n, k in want_b.items()):
+            bad.append(f"(b) rank {r} launched {b['launches']}, want {want_b}")
+    # ---- (c) ------------------------------------------------------------------
+    for r, rk in enumerate(ranks):
+        res = {k: v / 2 ** 30 for k, v in rk["a"]["resident"].items()}
+        print(f"  (c) rank {r}: resident text params + moments "
+              f"{res['counted']:.4f} GiB, the stage rule {res['rule']:.4f} "
+              f"GiB, one rank {res['one_rank']:.4f} GiB; peak memory "
+              f"{rk['a']['peak'] / 2 ** 30:.2f} GiB (print only; one rank "
+              f"{one['peak'] / 2 ** 30:.2f} GiB)  [{card}]")
+        if rk["a"]["resident"]["counted"] != rk["a"]["resident"]["rule"] \
+                or not rk["a"]["resident"]["counted"] < \
+                rk["a"]["resident"]["one_rank"]:
+            bad.append(f"(c) rank {r} resident bytes {rk['a']['resident']}")
+    # ---- (d): the entry point ----------------------------------------------------
+    runs = [rk["cli"] for rk in ranks]
+    e = world_cli_resume("pp18", root, spec)
+    cli_layers = spec["cli_bert"]["num_hidden_layers"]
+    shape = (spec["cli_bert"]["hidden_size"],
+             spec["cli_bert"]["intermediate_size"])
+    plain = all(tuple(e["saved"].get(
+        f"/text_model/bert.encoder.layer.{i}.output.dense.weight",
+        torch.empty(0)).shape) == shape for i in range(cli_layers))
+    conv = os.path.join(root, "converted18")
+    convert_checkpoint.convert("mi", e["last"], conv)
+    bc = BertConfig.from_json_file(os.path.join(root, "run-pp18-world",
+                                                "config.json"))
+    for model, fname in ((ResNet256_6_2_1(), "pytorch_MI_image_model.bin"),
+                         (TextBert(bc), "pytorch_MI_text_model.bin"),
+                         (ImageReportModel(bc),
+                          f"pytorch_model_epoch{WORLD_CLI_EPOCHS}.bin")):
+        model.load_state_dict(ckpt.load_state_dict_bin(
+            os.path.join(conv, fname)), strict=True)
+    print(f"  (d) cli.multi_modal {' '.join(WORLD_CLI_MESH['pp18'])} (f32, "
+          f"pallas_stem, dropout 0, {2 * spec['long']} pairs, "
+          f"{runs[0]['steps'] // WORLD_CLI_EPOCHS} steps an epoch, "
+          f"{WORLD_CLI_EPOCHS} epochs) in the world above in "
+          f"{runs[0]['seconds']:.1f} s (host clock), one rank resuming epoch "
+          f"2 from its mi_epoch1.ckpt in this process in {e['seconds']:.1f} "
+          f"s; mi_epoch{WORLD_CLI_EPOCHS}.ckpt against the world's gathered "
+          f"state: {e['entries']} entries, {len(e['differ'])} differ, the "
+          f"plain layout (layer0..{cli_layers - 1} whole) {plain}; the "
+          f"converter's .bin files loaded strict; epoch losses world "
+          f"{e['loss']['world']}, one rank {e['loss']['R1']} (held: epoch 2 "
+          f"within {TP_LOSS2:.1e}); weights after epoch 2 max |Δ| "
+          f"{e['r1_max']:.2e}, share > 1e-6 {e['r1_share']:.2e} (held: "
+          f"{STEP_FLIP_SHARE:.0e}); launches by rank "
+          f"{[r['launches'] for r in runs]}  [{card}]")
+    if e["differ"] or not plain:
+        bad.append(f"(d) the checkpoint against the world's state: "
+                   f"{e['differ'][:3]}, plain layout {plain}")
+    if len(e["loss"]["R1"]) != 1 or abs(e["loss"]["R1"][0]
+                                        - e["loss"]["world"][-1]) > \
+            TP_LOSS2 or e["r1_share"] > STEP_FLIP_SHARE:
+        bad.append(f"(d) one rank's resumed epoch against the world's: "
+                   f"{e['loss']}, {e['r1_max']}, {e['r1_share']}")
+    seconds_all = time.perf_counter() - started
+    print(f"  phase 18: {seconds_all:.1f} s (host clock; the world "
+          f"{world_s:.1f} s, one rank's references {one_s:.1f} s)  [{card}]")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    total = lambda counts: sum((collections.Counter(c) for c in counts),
+                               collections.Counter())
+    return {"pp_world": dict(total(rk["a"]["launches"] for rk in ranks)),
+            "pp_remat": dict(total(l for rk in ranks
+                                   for l in rk["b"]["launches"])),
+            "pp_cli": dict(total(r["launches"] for r in runs)),
+            "seconds": seconds_all}
 
 
 class PhaseClock:
@@ -6565,10 +7018,11 @@ class PhaseClock:
               f"[{self.card}]")
 
 
-def main(only17: bool = False) -> int:
-    """Every phase, or with ``only17`` (``python3 chip_smoke.py --phase17``,
-    a development run that prints no result lines) the build, phase 2's
-    flash checks, phase 3's flash times and phase 17."""
+def main(only: int = 0) -> int:
+    """Every phase, or with ``only`` 17 or 18 (``python3 chip_smoke.py
+    --phase17`` / ``--phase18``, a development run that prints no result
+    lines) the build, phase 2's flash checks, phase 3's flash times and
+    that phase."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs an NVIDIA card", file=sys.stderr)
@@ -6583,17 +7037,23 @@ def main(only17: bool = False) -> int:
     clock.done(1)
     print("== phase 2: kernels against their plain versions")
     checked = check_kernels("cuda")
-    if only17:
+    if only:
         clock.done(2)
         print(f"== phase 3: the flash kernels' times at {SERVE_SHAPE}")
         time_kernels()
         clock.done(3)
-        print(f"== phase 17: tensor and sequence parallelism, ZeRO-1 / FSDP, "
-              f"worlds of {TP_WORLD} ranks on the one card")
         with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
-            drive_tp(root, "cuda", backend=TP_BACKEND)
-        clock.done(17)
-        print(f"chip_smoke: phases 1, 2, 3 and 17 in "
+            if only == 17:
+                print(f"== phase 17: tensor and sequence parallelism, "
+                      f"ZeRO-1 / FSDP, worlds of {TP_WORLD} ranks on the one "
+                      f"card")
+                drive_tp(root, "cuda", backend=TP_BACKEND)
+            else:
+                print(f"== phase 18: GPipe, a world of {PP_WORLD} ranks on "
+                      f"the one card")
+                drive_pp(root, "cuda", backend=TP_BACKEND)
+        clock.done(only)
+        print(f"chip_smoke: phases 1, 2, 3 and {only} in "
               f"{time.perf_counter() - started:.1f} s (a development run: no "
               f"result lines)")
         return 0
@@ -6701,7 +7161,15 @@ def main(only17: bool = False) -> int:
           f"entry point from disk)")
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
         tp = drive_tp(root, "cuda", backend=world["backend"])
+    torch.cuda.empty_cache()
     clock.done(17)
+    print(f"== phase 18: GPipe, a world of {PP_WORLD} ranks on the one card "
+          f"on {{'pipe': {PP_WORLD}}} ((a) the f32 step against one rank, "
+          f"(b) the bf16 step with remat, (c) resident bytes, (d) the entry "
+          f"point from disk)")
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
+        pp = drive_pp(root, "cuda", backend=world["backend"])
+    clock.done(18)
 
     # each path's launches, counted from 0 just before it and read just
     # after; serving runs the flash forward, training and remat the flash
@@ -6717,7 +7185,9 @@ def main(only17: bool = False) -> int:
     # world's GradCache step (phase 16 (d)) the critic kernels, phase 17's
     # TP, TP + SP and ZeRO worlds and its TP entry point from disk the f32
     # flash kernels (with the stem's forward and dW where pallas_stem is
-    # on), its TP layer the fused FFN kernels
+    # on), its TP layer the fused FFN kernels, phase 18's pipelined world
+    # and its entry point from disk the f32 flash kernels and the stem's
+    # forward and dW, its remat world the bf16 flash kernels
     flash_all = [*fa.KERNELS.values(), *fa.BWD_KERNELS.values()]
     flash_bf16 = [fa.KERNELS[torch.bfloat16], fa.BWD_KERNELS[torch.bfloat16]]
     paths = {"serving": (serve["launches"], fa.KERNELS.values()),
@@ -6756,6 +7226,14 @@ def main(only17: bool = False) -> int:
                              fa.BWD_KERNELS[torch.float32],
                              sc.KERNELS["fwd"], sc.KERNELS["dw"]]),
              "tp_cli": (tp["tp_cli"], [fa.KERNELS[torch.float32],
+                                       fa.BWD_KERNELS[torch.float32],
+                                       sc.KERNELS["fwd"], sc.KERNELS["dw"]]),
+             "pp_world": (pp["pp_world"], [fa.KERNELS[torch.float32],
+                                           fa.BWD_KERNELS[torch.float32],
+                                           sc.KERNELS["fwd"],
+                                           sc.KERNELS["dw"]]),
+             "pp_remat_world": (pp["pp_remat"], flash_bf16),
+             "pp_cli": (pp["pp_cli"], [fa.KERNELS[torch.float32],
                                        fa.BWD_KERNELS[torch.float32],
                                        sc.KERNELS["fwd"], sc.KERNELS["dw"]])}
     for path, (counts, names) in paths.items():
@@ -6818,4 +7296,5 @@ def main(only17: bool = False) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--world-worker"]:
         sys.exit(world_worker(*sys.argv[2:]))
-    sys.exit(main(only17=sys.argv[1:2] == ["--phase17"]))
+    sys.exit(main(only={"--phase17": 17, "--phase18": 18}.get(
+        (sys.argv[1:2] or [""])[0], 0)))

@@ -22,9 +22,13 @@ A world of ranks (parallel/mesh.py): start one process per rank with
 ``MIMM_NUM_PROCESSES`` and ``MIMM_PROCESS_ID`` set, or under a launcher
 with ``MIMM_DISTRIBUTED=1`` (``torchrun``'s ``env://``);
 ``initialize_distributed`` runs first, and ``--mesh_shape`` (``data=<D>``,
-``model=<M>`` or ``data=<D>,model=<M>``) / ``--dcn_mesh_shape`` are
-checked against the world.  A 'model' axis runs BERT and the critic
-tensor-parallel (``--sequence_parallel`` splits the tokens too);
+``model=<M>``, ``pipe=<S>``, ``data=<D>,model=<M>`` or
+``data=<D>,pipe=<S>``; 'model' and 'pipe' together raise) /
+``--dcn_mesh_shape`` are checked against the world.  A 'model' axis runs BERT and the critic
+tensor-parallel (``--sequence_parallel`` splits the tokens too); a
+'pipe' axis of S ranks pipelines the text tower's layers over S stages
+in ``--pipeline_microbatches`` microbatches (GPipe; 0: one per stage),
+each stage holding its n/S layers and their moments;
 ``--zero1_optimizer_sharding`` and ``--fsdp_parameter_sharding`` rest the
 moments and the parameters 'data'-split.  ``--dist_backend`` overrides
 the process group's backend (by default NCCL for CUDA tensors, gloo for

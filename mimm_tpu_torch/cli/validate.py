@@ -21,9 +21,10 @@ A world of ranks (parallel/mesh.py): start one process per rank with
 ``MIMM_NUM_PROCESSES`` and ``MIMM_PROCESS_ID`` set, or under a launcher
 with ``MIMM_DISTRIBUTED=1`` (``torchrun``'s ``env://``);
 ``initialize_distributed`` runs first, and ``--mesh_shape`` (``data=<D>``,
-``model=<M>`` or ``data=<D>,model=<M>``) / ``--dcn_mesh_shape`` are
-checked against the world.  A 'model' axis replicates the frozen
-encoders over its ranks, which embed their data index's rows.
+``model=<M>``, ``pipe=<S>``, ``data=<D>,model=<M>`` or
+``data=<D>,pipe=<S>``; 'model' and 'pipe' together raise) /
+``--dcn_mesh_shape`` are checked against the world.  A 'model' or a 'pipe' axis replicates the
+frozen encoders over its ranks, which embed their data index's rows.
 ``--dist_backend`` overrides the process group's backend (by default
 NCCL for CUDA tensors, gloo for CPU tensors).  Every rank prints the
 same report.

@@ -40,7 +40,8 @@ class TrainingConfig:
     shallow-conv kernels), ``u8_dropout``, both moment dtypes, the freezes,
     ``grad_cache_chunks`` (GradCache's two passes above 1),
     ``global_negatives``, and for a world of ranks (parallel/mesh.py)
-    ``mesh_shape`` / ``dcn_mesh_shape`` (the 'data' and 'model' axes),
+    ``mesh_shape`` / ``dcn_mesh_shape`` (the 'data', 'model' and 'pipe'
+    axes), ``pipeline_microbatches`` (GPipe's M; 0: one per stage),
     ``grad_allreduce_dtype``, ``sequence_parallel``,
     ``zero1_optimizer_sharding`` and ``fsdp_parameter_sharding``;
     ``MultiModalManager`` also reads
@@ -57,8 +58,7 @@ class TrainingConfig:
     ``s2d_stem`` (the canonical stem; exclusive with ``pallas_stem``, as in
     JAX); ``profile_steps`` (the Manager's and the autoencoder's
     first dispatches traced by torch.profiler) and ``tensorboard`` (every
-    trainer's scalars mirrored as TensorBoard events).  GPipe raises when
-    set (a 'pipe' mesh axis, ``pipeline_microbatches``)."""
+    trainer's scalars mirrored as TensorBoard events)."""
 
     image_dir: str = _default("full_data_set/images/")
     text_data_dir: str = _default("training_data/text/")

@@ -34,6 +34,11 @@ gathers and reduce-scatters of parallel/mesh.py at the products' edges;
 where M does not divide L the call runs as TP alone, as JAX's ``_sp`` is
 then a no-op.  Every dropout mask is drawn whole from the shared
 generator and the rank's part applied, so a world draws one rank's masks.
+
+Pipeline parallelism (parallel/pipeline.py) calls the forward's pieces
+apart: ``BertModel.embed`` on stage 0, ``encode`` over a stage's range of
+layers with a generator of each (layer, microbatch), and ``pool`` and
+``TextBert.head`` on every rank.
 """
 
 from __future__ import annotations
@@ -348,9 +353,30 @@ class BertModel(nn.Module):
     def forward(self, input_ids, token_type_ids=None, attention_mask=None, *,
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
-        cfg = self.config
         if not deterministic:
-            _check_training(cfg, generator)
+            _check_training(self.config, generator)
+        hidden, attn_bias = self.embed(input_ids, token_type_ids,
+                                       attention_mask, deterministic,
+                                       generator)
+        # sequence parallelism where 'model' divides L (JAX's _sp: a no-op
+        # otherwise, the call then runs as TP alone)
+        sp = self.tp is not None and self.sequence_parallel \
+            and input_ids.shape[1] % self.tp.model == 0
+        if sp:
+            hidden = scatter_seq(hidden, self.tp)
+        hidden = self.encode(hidden, attn_bias,
+                             range(self.config.num_hidden_layers),
+                             deterministic, lambda i: generator)
+        if sp:
+            hidden = gather_seq_replicated(hidden, self.tp)
+        return hidden, self.pool(hidden[:, 0])
+
+    def embed(self, input_ids, token_type_ids=None, attention_mask=None,
+              deterministic: bool = True,
+              generator: Optional[torch.Generator] = None):
+        """The embeddings' LayerNorm and dropout, (B, L, h) in the compute
+        dtype, and the (B, 1, 1, L) additive attention mask."""
+        cfg = self.config
         dt = self.dtype
         emb = self.embeddings
         if token_type_ids is None:
@@ -369,26 +395,34 @@ class BertModel(nn.Module):
         hidden = _layer_norm(emb.LayerNorm, hidden)
         hidden = dropout_fn(cfg)(hidden, cfg.hidden_dropout_prob, generator,
                                  deterministic)
-        # (B, 1, 1, L) additive mask, -10000 on padding, formed in the
-        # compute dtype (-9984 in bfloat16) as pytorch_transformers does
-        attn_bias = (1.0 - attention_mask[:, None, None, :].to(dt)) * -10000.0
-        # sequence parallelism where 'model' divides L (JAX's _sp: a no-op
-        # otherwise, the call then runs as TP alone)
-        sp = self.tp is not None and self.sequence_parallel \
-            and seq % self.tp.model == 0
-        if sp:
-            hidden = scatter_seq(hidden, self.tp)
-        remat = cfg.remat and torch.is_grad_enabled()
-        for layer in self.encoder.layer:
+        return hidden, self.attention_bias(attention_mask)
+
+    def attention_bias(self, attention_mask) -> torch.Tensor:
+        """(B, 1, 1, L) additive mask, -10000 on padding, formed in the
+        compute dtype (-9984 in bfloat16) as pytorch_transformers does."""
+        return (1.0 - attention_mask[:, None, None, :].to(self.dtype)) \
+            * -10000.0
+
+    def encode(self, hidden, attn_bias, layers: range,
+               deterministic: bool = True, generator_of=lambda i: None):
+        """The encoder layers ``layers`` (global indices) over ``hidden``,
+        layer i drawing its dropout masks and flash seed from
+        ``generator_of(i)``; each layer rematerialized under
+        ``config.remat`` when gradients are on."""
+        remat = self.config.remat and torch.is_grad_enabled()
+        for i in layers:
+            layer = self.encoder.layer[i]
             if remat:
                 hidden = _remat_layer(layer, hidden, attn_bias, deterministic,
-                                      generator)
+                                      generator_of(i))
             else:
-                hidden = layer(hidden, attn_bias, deterministic, generator)
-        if sp:
-            hidden = gather_seq_replicated(hidden, self.tp)
-        pooled = torch.tanh(_linear(self.pooler.dense, hidden[:, 0]))
-        return hidden, pooled
+                hidden = layer(hidden, attn_bias, deterministic,
+                               generator_of(i))
+        return hidden
+
+    def pool(self, cls: torch.Tensor) -> torch.Tensor:
+        """tanh(pooler([CLS])), in the compute dtype."""
+        return torch.tanh(_linear(self.pooler.dense, cls))
 
 
 def _remat_layer(layer: BertLayer, hidden, attn_bias, deterministic: bool,
@@ -461,6 +495,12 @@ class TextBert(nn.Module):
                 generator: Optional[torch.Generator] = None):
         _, pooled = self.bert(input_ids, token_type_ids, attention_mask,
                               deterministic=deterministic, generator=generator)
+        return self.head(pooled, deterministic, generator)
+
+    def head(self, pooled, deterministic: bool = True,
+             generator: Optional[torch.Generator] = None):
+        """(pooled promoted to at least float32, the classifier's logits
+        over its dropout)."""
         pooled = pooled.to(torch.promote_types(pooled.dtype, torch.float32))
         dropped = dropout_fn(self.config)(
             pooled, self.config.hidden_dropout_prob, generator, deterministic)

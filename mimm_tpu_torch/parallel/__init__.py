@@ -1,4 +1,4 @@
 """Parallel execution over ``torch.distributed`` (mimm_tpu/parallel/
-counterpart): data parallelism over the world (``mesh``).  The sharding
-modes (ZeRO-1, FSDP, tensor and sequence parallelism, GPipe) come in a
-later slice and raise."""
+counterpart): data, tensor and sequence parallelism, ZeRO-1 and FSDP
+(``mesh``), and GPipe pipeline parallelism of the text tower
+(``pipeline``)."""

@@ -1,18 +1,20 @@
-"""Data, tensor and sequence parallelism and ZeRO-1 / FSDP over
-``torch.distributed`` (mimm_tpu/parallel/mesh.py counterpart, its 'data'
-and 'model' axes).
+"""Data, tensor, sequence and pipeline parallelism and ZeRO-1 / FSDP over
+``torch.distributed`` (mimm_tpu/parallel/mesh.py counterpart, its 'data',
+'model' and 'pipe' axes).
 
 JAX runs one program over a device mesh and lets XLA insert the
 collectives; torch runs one process per device.  So the terms map as:
 
 * JAX's ``process_count()`` / ``process_index()`` are the world size and
   this process's rank.  A ``Mesh`` here lays the world out as JAX's
-  ``make_mesh`` reshapes its devices: ``{'data': D, 'model': M}`` puts rank
-  ``d·M + m`` at data index d and model index m (``data_rank``,
-  ``model_rank``), with one process group per model column (the ranks of
-  one model index: the 'data' axis, ``data_group``) and one per data row
-  (``model_group``).  Without a mesh shape the whole world is the 'data'
-  axis.
+  ``make_mesh`` reshapes its devices, row-major in the order the axes are
+  given: ``{'data': D, 'model': M}`` puts rank ``d·M + m`` at data index d
+  and model index m (``data_rank``, ``model_rank``), ``{'data': D,
+  'pipe': S}`` rank ``d·S + s`` at data index d and stage s
+  (``pipe_rank``), with one process group per line of each axis larger
+  than 1 (the ranks that differ only in that axis: ``data_group``,
+  ``model_group``, ``pipe_group``).  Without a mesh shape the whole world
+  is the 'data' axis.
 * ``initialize_distributed`` reads the JAX package's variables
   (``MIMM_DISTRIBUTED``, ``MIMM_COORDINATOR_ADDRESS``,
   ``MIMM_NUM_PROCESSES``, ``MIMM_PROCESS_ID``) and starts the process
@@ -23,10 +25,11 @@ collectives; torch runs one process per device.  So the terms map as:
 * A rank's device is ``cuda:(local_rank % device_count())``
   (``rank_device``), so two ranks may share one card.
 * ``shard_batch`` takes this data index's rows of a global batch (the
-  ranks of one data row get the same rows) and ``replicate`` broadcasts
-  rank 0's tensors to the world; ``gather_rows`` is the all-gather the
-  critic's global negatives need, and ``all_reduce_sum`` the one sync-BN's
-  statistics need, both over the 'data' axis, with autograd.
+  ranks of one data index, over 'model' and 'pipe', get the same rows)
+  and ``replicate`` broadcasts rank 0's tensors to the world;
+  ``gather_rows`` is the all-gather the critic's global negatives need,
+  and ``all_reduce_sum`` the one sync-BN's statistics need, both over the
+  'data' axis, with autograd.
 * Tensor parallelism (Megatron; JAX's GSPMD over ``bert_tp_shardings`` /
   ``critic_tp_shardings``): a 'model' rank holds its piece of each
   column-parallel weight (output features) and row-parallel weight (input
@@ -43,6 +46,18 @@ collectives; torch runs one process per device.  So the terms map as:
   slice; ``sharded_update`` runs an optimizer on the slices and gathers
   the parameters again (ZeRO-1) or keeps them split (FSDP, gathered at
   the start of the next step by ``gather_params``).
+* Pipeline parallelism (GPipe, parallel/pipeline.py; JAX's
+  ``pp_resident`` branch of ``mi_state_specs``): stage s of S holds the
+  parameters and AdamW moments of the text encoder's layers [s·n/S,
+  (s+1)·n/S) and empty tensors for the other layers (``pipe_shardings``);
+  the embeddings, the pooler and the classifier are replicated.  The
+  layout wins over TP and ZeRO for the text tower, as in JAX; ZeRO-1 and
+  FSDP then split the image tower and the critic over 'data'.  The
+  'model' axis only replicates under pipeline parallelism in JAX (the
+  pipelined layers are built without the mesh), so a mesh with both
+  'model' and 'pipe' larger than 1 raises ``ValueError``.
+  ``full_group`` gathers the stages' layers into the plain ``layer0 ..
+  layer{n-1}`` tree that checkpoints hold.
 
 Who sums what.  Each rank computes the loss of the WHOLE batch from the
 gathered embeddings, so every rank holds the same loss; so:
@@ -62,13 +77,20 @@ gathered embeddings, so every rank holds the same loss; so:
   LayerNorm / dropout / residual regions, so the LayerNorms and the
   row-parallel biases there ARE summed over 'model' (``copy_to_model`` on
   the parameter: identity forward, all-reduce backward).
+* Under pipeline parallelism every rank of a pipe line computes the same
+  loss from the same replicated [CLS] rows, so the gradient of those rows
+  that the last stage pulls back through its layers is one rank's, not
+  the sum over the S ranks (as ``gather_rows``).  An encoder layer's
+  gradient is its stage's own, summed over the M microbatches and over
+  'data' only; the embeddings' (and their LayerNorm's) exist on stage 0
+  alone and are broadcast over 'pipe'; the pooler's, the classifier's,
+  the image tower's and the critic's are equal on every pipe rank and are
+  not summed over 'pipe'.
 * Sync-BN's statistics and ``gather_rows`` run over the data group, not
   the world.
 * The critic's gradient, which every data index computes in full, is
   taken from data index 0; under TP its replicated layers' gradients are
   the same on every model rank and its TP layers keep each rank's piece.
-
-The 'pipe' axis and the GPipe schedule are slice 3 and raise, naming it.
 """
 
 from __future__ import annotations
@@ -76,6 +98,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import logging
+import math
 import os
 from typing import Any, Dict, Iterable, List, Optional
 
@@ -88,9 +111,6 @@ logger = logging.getLogger(__name__)
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 PIPE_AXIS = "pipe"
-GPIPE = ("comes with slice 3: GPipe (ROADMAP.md queue A, \"parallel/mesh.py "
-         "and parallel/pipeline.py\": the 'pipe' axis, "
-         "pipeline_microbatches and the resident stacked text layout)")
 
 
 def world_size() -> int:
@@ -195,12 +215,13 @@ def backend_name() -> str:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The world as JAX's mesh: ``data`` × ``model`` ranks, this process
-    at (``data_rank``, ``model_rank``); ``axis_names`` as given (a 'model'
-    axis named at size 1 still selects the TP placements, as in JAX);
-    ``data_group`` / ``model_group``: the process groups of this rank's
-    model column and data row (None: the default group, or no collective
-    at size 1).  ``size`` and ``rank`` are the world's."""
+    """The world as JAX's mesh: ``data`` × ``model`` × ``pipe`` ranks, this
+    process at (``data_rank``, ``model_rank``, ``pipe_rank``);
+    ``axis_names`` as given (a 'model' axis named at size 1 still selects
+    the TP placements, as in JAX); ``data_group`` / ``model_group`` /
+    ``pipe_group``: the process groups of this rank's line along each axis
+    (None: the default group, or no collective at size 1).  ``size`` and
+    ``rank`` are the world's."""
 
     data: int = 1
     model: int = 1
@@ -211,10 +232,14 @@ class Mesh:
                                         repr=False)
     model_group: Any = dataclasses.field(default=None, compare=False,
                                          repr=False)
+    pipe: int = 1
+    pipe_rank: int = 0
+    pipe_group: Any = dataclasses.field(default=None, compare=False,
+                                        repr=False)
 
     @property
     def size(self) -> int:
-        return self.data * self.model
+        return self.data * self.model * self.pipe
 
     @property
     def rank(self) -> int:
@@ -222,7 +247,8 @@ class Mesh:
 
     @property
     def shape(self) -> Dict[str, int]:
-        sizes = {DATA_AXIS: self.data, MODEL_AXIS: self.model}
+        sizes = {DATA_AXIS: self.data, MODEL_AXIS: self.model,
+                 PIPE_AXIS: self.pipe}
         return {a: sizes.get(a, 1) for a in self.axis_names}
 
     @property
@@ -258,11 +284,13 @@ def _axis_group(dims: tuple, axis: int, rank: int):
 def make_mesh(mesh_shape: Optional[Dict[str, int]] = None,
               dcn_mesh_shape: Optional[Dict[str, int]] = None) -> Mesh:
     """The world as a mesh.  ``mesh_shape``: e.g. ``{'data': 2, 'model':
-    2}`` (all ranks on 'data' by default), laid out in its axis order as
-    JAX reshapes its devices; ``dcn_mesh_shape``: the factor of each axis
-    that spans hosts.  On GPUs it only orders the ranks, so an axis of
-    ``n × dcn`` ranks gives the same math; it is validated as JAX does.
-    A 'pipe' axis larger than 1 raises, naming slice 3."""
+    2}`` or ``{'data': 2, 'pipe': 2}`` (all ranks on 'data' by default),
+    laid out in its axis order as JAX reshapes its devices;
+    ``dcn_mesh_shape``: the factor of each axis that spans hosts.  On GPUs
+    it only orders the ranks, so an axis of ``n × dcn`` ranks gives the
+    same math; it is validated as JAX does.  'model' and 'pipe' both
+    larger than 1 raise ``ValueError``: JAX's pipelined text tower
+    replicates over 'model'."""
     mesh_shape = dict(mesh_shape or {})
     if dcn_mesh_shape and not mesh_shape:
         raise ValueError("dcn_mesh_shape requires an explicit mesh_shape "
@@ -274,11 +302,17 @@ def make_mesh(mesh_shape: Optional[Dict[str, int]] = None,
     total = {a: int(s) * int((dcn_mesh_shape or {}).get(a, 1))
              for a, s in mesh_shape.items()}
     for axis, size in total.items():
-        if axis == PIPE_AXIS and size > 1:
-            raise NotImplementedError(f"a 'pipe' mesh axis {GPIPE}")
         if axis not in (DATA_AXIS, MODEL_AXIS, PIPE_AXIS) and size > 1:
             raise ValueError(f"unknown mesh axis {axis!r} (the port's axes: "
-                             f"{DATA_AXIS!r}, {MODEL_AXIS!r})")
+                             f"{DATA_AXIS!r}, {MODEL_AXIS!r}, {PIPE_AXIS!r})")
+    if total.get(MODEL_AXIS, 1) > 1 and total.get(PIPE_AXIS, 1) > 1:
+        raise ValueError(
+            f"a mesh of 'model' {total[MODEL_AXIS]} and 'pipe' "
+            f"{total[PIPE_AXIS]}: pipeline parallelism runs the text "
+            f"layers without tensor parallelism (JAX builds the pipelined "
+            f"BertLayer without the mesh and its resident layout wins over "
+            f"TP), so the 'model' axis would only replicate; use one of "
+            f"the two")
     n, rank = world_size(), world_rank()
     if not mesh_shape:
         return Mesh(data=n, data_rank=rank if n > 1 else 0)
@@ -291,14 +325,17 @@ def make_mesh(mesh_shape: Optional[Dict[str, int]] = None,
     coords = dict(zip(names, np.unravel_index(rank, dims))) if n > 1 \
         else {a: 0 for a in names}
     groups = {}
-    for axis in (DATA_AXIS, MODEL_AXIS):
+    for axis in (DATA_AXIS, MODEL_AXIS, PIPE_AXIS):
         if total.get(axis, 1) > 1 and n > 1:
             groups[axis] = _axis_group(dims, names.index(axis), rank)
     return Mesh(data=total.get(DATA_AXIS, 1), model=total.get(MODEL_AXIS, 1),
+                pipe=total.get(PIPE_AXIS, 1),
                 data_rank=int(coords.get(DATA_AXIS, 0)),
-                model_rank=int(coords.get(MODEL_AXIS, 0)), axis_names=names,
+                model_rank=int(coords.get(MODEL_AXIS, 0)),
+                pipe_rank=int(coords.get(PIPE_AXIS, 0)), axis_names=names,
                 data_group=groups.get(DATA_AXIS),
-                model_group=groups.get(MODEL_AXIS))
+                model_group=groups.get(MODEL_AXIS),
+                pipe_group=groups.get(PIPE_AXIS))
 
 
 def mesh_size(mesh: Optional[Mesh]) -> int:
@@ -311,16 +348,31 @@ def model_size(mesh: Optional[Mesh]) -> int:
     return 1 if mesh is None else mesh.model
 
 
+def pipe_size(mesh: Optional[Mesh]) -> int:
+    """The 'pipe' axis's size, the pipeline's stages (1 without a mesh)."""
+    return 1 if mesh is None else mesh.pipe
+
+
 def _group(mesh: Mesh, axis: str):
-    return mesh.data_group if axis == DATA_AXIS else mesh.model_group
+    return {DATA_AXIS: mesh.data_group, MODEL_AXIS: mesh.model_group,
+            PIPE_AXIS: mesh.pipe_group}[axis]
 
 
 def _axis_size(mesh: Optional[Mesh], axis: str) -> int:
-    return mesh_size(mesh) if axis == DATA_AXIS else model_size(mesh)
+    return {DATA_AXIS: mesh_size, MODEL_AXIS: model_size,
+            PIPE_AXIS: pipe_size}[axis](mesh)
 
 
 def _axis_rank(mesh: Mesh, axis: str) -> int:
-    return mesh.data_rank if axis == DATA_AXIS else mesh.model_rank
+    return {DATA_AXIS: mesh.data_rank, MODEL_AXIS: mesh.model_rank,
+            PIPE_AXIS: mesh.pipe_rank}[axis]
+
+
+def axis_global_rank(mesh: Mesh, axis: str, index: int) -> int:
+    """The world rank of the rank at ``index`` along ``axis`` in this
+    rank's line of it."""
+    group = _group(mesh, axis)
+    return index if group is None else dist.get_global_rank(group, index)
 
 
 # ---- collectives ----------------------------------------------------------
@@ -527,6 +579,16 @@ def gather_model_dim(x: torch.Tensor, mesh: Optional[Mesh],
     return _GatherDim.apply(x, mesh, dim)
 
 
+def _name_buckets(tensors: dict, keys: list) -> List[List[str]]:
+    """``keys`` of ``tensors`` ({name: tensor}) grouped by (device, dtype),
+    in their order: one collective each."""
+    buckets: Dict[tuple, List[str]] = {}
+    for k in keys:
+        buckets.setdefault((tensors[k].device, tensors[k].dtype),
+                           []).append(k)
+    return list(buckets.values())
+
+
 def _buckets(tensors: List[torch.Tensor]) -> Dict[tuple, List[torch.Tensor]]:
     buckets: Dict[tuple, List[torch.Tensor]] = {}
     for t in tensors:
@@ -569,7 +631,7 @@ def broadcast_(tensors: Iterable[torch.Tensor], mesh: Optional[Mesh],
     if size == 1 or not tensors:
         return
     group = None if axis is None else _group(mesh, axis)
-    root = src if group is None else dist.get_global_rank(group, src)
+    root = src if axis is None else axis_global_rank(mesh, axis, src)
     for group_t in _buckets(tensors).values():
         flat = torch.cat([t.reshape(-1) for t in group_t])
         dist.broadcast(flat, root, group=group)
@@ -757,11 +819,7 @@ def gather_leaves(tensors: dict, dims: dict, mesh: Optional[Mesh],
     split = [k for k, t in tensors.items() if dims.get(k) is not None]
     if n == 1 or not split:
         return out
-    buckets: Dict[tuple, List[str]] = {}
-    for k in split:
-        buckets.setdefault((tensors[k].device, tensors[k].dtype),
-                           []).append(k)
-    for keys in buckets.values():
+    for keys in _name_buckets(tensors, split):
         whole = _all_gather(torch.cat([tensors[k].detach().reshape(-1)
                                        for k in keys]), mesh, axis)
         parts = whole.chunk(n)
@@ -775,6 +833,60 @@ def gather_leaves(tensors: dict, dims: dict, mesh: Optional[Mesh],
     return out
 
 
+_LAYER = "bert.encoder.layer."
+
+
+def pipe_shardings(mesh: Optional[Mesh], text_params: dict) -> dict:
+    """The pipeline placement of the text tower's parameters (names of
+    ``TextBert.named_parameters()``; JAX's ``pp_resident_shardings``): the
+    stage that holds each encoder layer's tensors, layer i on stage
+    ``i // (n / S)``, and None (replicated) for the embeddings, the pooler
+    and the classifier.  All None without a 'pipe' axis; raises
+    ``ValueError`` when S does not divide the n layers."""
+    stages = pipe_size(mesh)
+    layer = {n: int(n[len(_LAYER):].split(".")[0]) for n in text_params
+             if n.startswith(_LAYER)}
+    if stages == 1 or not layer:
+        return {n: None for n in text_params}
+    n_layers = max(layer.values()) + 1
+    if n_layers % stages:
+        raise ValueError(f"num_hidden_layers={n_layers} not divisible by "
+                         f"pipeline stages={stages}")
+    per = n_layers // stages
+    return {n: (layer[n] // per if n in layer else None) for n in text_params}
+
+
+@torch.no_grad()
+def gather_stages(tensors: dict, stages: dict, shapes: dict,
+                  mesh: Optional[Mesh]) -> dict:
+    """The whole tensors of a pipeline-placed group: each of ``tensors``
+    ({name: tensor}) that ``stages[name]`` places on a stage is broadcast
+    from that stage over 'pipe' at its full shape (``shapes[name]``), one
+    broadcast per stage and dtype; the others as they are."""
+    n = pipe_size(mesh)
+    out = dict(tensors)
+    if n == 1:
+        return out
+    for stage in range(n):
+        keys = [k for k in tensors if stages.get(k) == stage]
+        for keys_b in _name_buckets(tensors, keys):
+            sizes = [math.prod(shapes[k]) for k in keys_b]
+            like = tensors[keys_b[0]]
+            if mesh.pipe_rank == stage:
+                flat = torch.cat([tensors[k].detach().reshape(-1)
+                                  for k in keys_b])
+            else:
+                flat = torch.empty(sum(sizes), dtype=like.dtype,
+                                   device=like.device)
+            dist.broadcast(flat, axis_global_rank(mesh, PIPE_AXIS, stage),
+                           group=mesh.pipe_group)
+            off = 0
+            for k, size in zip(keys_b, sizes):
+                out[k] = flat[off:off + size].view(shapes[k])
+                off += size
+    return out
+
+
 # ---- placed train states ------------------------------------------------------
 
 @dataclasses.dataclass
@@ -782,11 +894,15 @@ class GroupLayout:
     """How one parameter group of a train state rests on the mesh:
     ``tp`` its TP placement over 'model' (None: replicated), ``zero`` the
     'data' placement of its optimizer moments (ZeRO-1) and ``fsdp`` that
-    of its parameters, both on the rank's TP pieces (None: off)."""
+    of its parameters, both on the rank's TP pieces (None: off); ``pipe``
+    the stage of each tensor of a pipeline-placed group (the rank keeps an
+    empty tensor for another stage's) with ``shapes`` the whole shapes."""
 
     tp: Optional[dict] = None
     zero: Optional[dict] = None
     fsdp: Optional[dict] = None
+    pipe: Optional[dict] = None
+    shapes: Optional[dict] = None
 
 
 @dataclasses.dataclass
@@ -817,12 +933,19 @@ def _map_moments(opt_state, fn):
 def place_group(params: Dict[str, torch.Tensor], opt_state,
                 layout: GroupLayout, mesh: Mesh):
     """Cut a group's full parameters (in place: each parameter's ``.data``
-    becomes its piece) and its optimizer moments to ``layout``: the TP
-    pieces, then the 'data' slices.  Returns the placed optimizer state."""
+    becomes its piece) and its optimizer moments to ``layout``: another
+    stage's tensors to empty ones, the TP pieces, then the 'data' slices.
+    Returns the placed optimizer state."""
+    def staged(n: str, t: torch.Tensor) -> torch.Tensor:
+        stage = (layout.pipe or {}).get(n)
+        if stage is None or stage == mesh.pipe_rank:
+            return t
+        return t.new_empty(0)
+
     with torch.no_grad():
         for n, p in params.items():
-            piece = shard_leaf(p.data, (layout.tp or {}).get(n), mesh,
-                               MODEL_AXIS)
+            piece = shard_leaf(staged(n, p.data), (layout.tp or {}).get(n),
+                               mesh, MODEL_AXIS)
             if layout.fsdp is not None:
                 piece = shard_leaf(piece, layout.fsdp.get(n), mesh, DATA_AXIS)
             p.data = piece.contiguous()
@@ -830,7 +953,8 @@ def place_group(params: Dict[str, torch.Tensor], opt_state,
     def cut(moments: dict) -> dict:
         out = {}
         for n, t in moments.items():
-            t = shard_leaf(t, (layout.tp or {}).get(n), mesh, MODEL_AXIS)
+            t = shard_leaf(staged(n, t), (layout.tp or {}).get(n), mesh,
+                           MODEL_AXIS)
             if layout.zero is not None:
                 t = shard_leaf(t, layout.zero.get(n), mesh, DATA_AXIS)
             out[n] = t.contiguous()
@@ -855,15 +979,19 @@ def full_group(params: Dict[str, torch.Tensor], opt_state,
                layout: Optional[GroupLayout], mesh: Optional[Mesh]):
     """The whole tensors of a placed group at rest: ({name: parameter},
     optimizer state), gathered over 'data' (the FSDP slices, the ZeRO-1
-    moments) and then over 'model' (the TP pieces).  Every rank calls
-    it."""
+    moments), then over 'model' (the TP pieces) and over 'pipe' (the
+    stages' layers).  Every rank calls it."""
     if layout is None:
         return dict(params), opt_state
 
     def whole(tensors: dict, data_dims: Optional[dict]) -> dict:
         if data_dims is not None:
             tensors = gather_leaves(tensors, data_dims, mesh, DATA_AXIS)
-        return gather_leaves(tensors, layout.tp or {}, mesh, MODEL_AXIS)
+        tensors = gather_leaves(tensors, layout.tp or {}, mesh, MODEL_AXIS)
+        if layout.pipe is not None:
+            tensors = gather_stages(tensors, layout.pipe, layout.shapes,
+                                    mesh)
+        return tensors
 
     out = whole({n: p.detach() for n, p in params.items()}, layout.fsdp)
     return out, _map_moments(opt_state, lambda m: whole(m, layout.zero))
@@ -916,6 +1044,10 @@ def sharded_update(tx, grads: Dict[str, torch.Tensor], opt_state,
 
 def _text_layout(state, mesh: Mesh, zero1: bool, fsdp: bool) -> GroupLayout:
     params = dict(state.model.text_model.named_parameters())
+    if mesh.pipe > 1:   # the resident stage layout wins, as in JAX
+        return GroupLayout(pipe=pipe_shardings(mesh, params),
+                           shapes={n: tuple(p.shape)
+                                   for n, p in params.items()})
     if mesh.tp:     # the text moments follow their TP params
         return GroupLayout(tp=bert_tp_shardings(mesh, params))
     return GroupLayout(zero=zero1_shardings(mesh, params) if zero1 else None,
@@ -946,10 +1078,13 @@ def shard_mi_state(mesh: Optional[Mesh], state, zero1: bool = False,
     ``sp_sharding``, which has no effect without the axis).  ``zero1``
     (cfg.zero1_optimizer_sharding): the moments rest 'data'-split
     (``zero1_shardings``): the image tower's and the critic's, and the text
-    tower's without TP.  ``fsdp`` (cfg.fsdp_parameter_sharding): the
-    parameters rest 'data'-split too: the image tower's, and without TP the
-    text tower's and the critic's.  Sets ``state.layout``; returns the
-    state."""
+    tower's without TP or a 'pipe' axis.  ``fsdp``
+    (cfg.fsdp_parameter_sharding): the parameters rest 'data'-split too:
+    the image tower's, and without TP the critic's and (without a 'pipe'
+    axis) the text tower's.  With a 'pipe' axis the text tower rests in
+    the pipeline layout (``pipe_shardings``: a stage keeps its layers'
+    parameters and moments, empty tensors for the others'; parallel/
+    pipeline.py runs it).  Sets ``state.layout``; returns the state."""
     from mimm_tpu_torch.models.bert import (set_sequence_parallel,
                                             set_tensor_parallel)
     from mimm_tpu_torch.train.mi import critic_dict
@@ -958,7 +1093,7 @@ def shard_mi_state(mesh: Optional[Mesh], state, zero1: bool = False,
     _replicate_opt(mesh, [state.img_opt, state.mi_opt, state.txt_opt])
     zero1 = zero1 and mesh_size(mesh) > 1
     fsdp = fsdp and mesh_size(mesh) > 1
-    if mesh is None or not (mesh.tp or zero1 or fsdp):
+    if mesh is None or not (mesh.tp or zero1 or fsdp or mesh.pipe > 1):
         return state
     img = dict(state.model.image_model.named_parameters())
     critic = critic_dict(state.critic_params)

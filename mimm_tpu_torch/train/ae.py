@@ -31,8 +31,8 @@ as one rank at N × the batch; with ``grad_cache_chunks`` a multiple of N
 each rank runs its share of the global batch's chunks, each chunk's
 statistics its own, as on one rank.  Saves are the sharded format, the
 ``.bin`` files then come from ``tools/convert_checkpoint.py``.  A 'model'
-mesh axis replicates the trainer over its ranks, which take their data
-index's rows.  ``cfg.zero1_optimizer_sharding`` rests the Adam moments and
+or a 'pipe' mesh axis replicates the trainer over its ranks, which take
+their data index's rows.  ``cfg.zero1_optimizer_sharding`` rests the Adam moments and
 ``cfg.fsdp_parameter_sharding`` the parameters 'data'-split
 (``parallel.mesh.shard_ae_state``); the update on the slices gives the
 replicated update's bits, and the resume checkpoint holds the whole

@@ -90,8 +90,8 @@ def make_embedding_fn(kind: str, model: torch.nn.Module, state_dict=None,
     "unimodal" (``ResNetAE.encode``).  ``mesh``: each data index embeds
     its rows of the batch and every rank gets all of them (a batch the
     'data' axis does not divide: every rank embeds it whole, the same
-    result); the ranks of one data row, which a 'model' axis adds, embed
-    the same rows with the frozen encoder replicated, as JAX's pass."""
+    result); the ranks of one data index, which a 'model' or a 'pipe'
+    axis adds, embed the same rows with the frozen encoder replicated, as JAX's pass."""
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
     model.eval()

@@ -62,8 +62,23 @@ optimizer moments and ``cfg.fsdp_parameter_sharding`` the parameters
 (``parallel.mesh.sharded_update``) and gives the replicated update's bits.
 The resume checkpoint holds the whole tensors whatever the mode
 (``mi_state_tree`` gathers them), so a run resumes under another mode or
-on one rank.  The 'pipe' axis and ``pipeline_microbatches`` (GPipe) raise,
-naming slice 3.
+on one rank.
+
+A 'pipe' mesh axis (``{'pipe': S}`` or ``{'data': D, 'pipe': S}``; GPipe,
+parallel/pipeline.py): ``shard_mi_state`` leaves each stage the text
+layers [s·n/S, (s+1)·n/S) and their moments, and the step runs the text
+tower through ``pipelined_textbert_apply`` in
+``cfg.pipeline_microbatches`` microbatches (0: one per stage) while every
+pipe rank runs the image tower, the critic and the bound whole on its data
+index's rows.  After the backward of the loss, which ends at the replicated
+[CLS] rows, each stage pulls their gradient back through its layers
+(``StageRun.backward``); the embeddings' gradients, stage 0's, are
+broadcast over 'pipe'.  Dropout draws per (step, data index or GradCache
+chunk, layer, microbatch) from ``pipe_key``, so a pipeline equals one rank
+at dropout 0, as JAX's tests compare them.  GradCache pipelines each
+chunk's passes.  Checkpoints hold the plain ``layer0 .. layer{n-1}`` tree
+(``mi_state_tree`` gathers the stages), so a pipelined run and a plain
+one resume from each other.
 """
 
 from __future__ import annotations
@@ -96,6 +111,7 @@ from mimm_tpu_torch.ops.image_norm import decompact_batch
 from mimm_tpu_torch.ops.pairwise_critic import pairwise_critic_scores_pallas
 from mimm_tpu_torch.models.resnet import set_bn_axis
 from mimm_tpu_torch.parallel import mesh as mesh_lib
+from mimm_tpu_torch.parallel import pipeline
 from mimm_tpu_torch.train.optim import (GradientTransformation, adam_torch,
                                         adamw_hf, apply_updates,
                                         bert_decay_mask, bert_trainable_mask,
@@ -316,9 +332,15 @@ def rank_generator(seed: int, step: int, rank: int,
     return gen
 
 
-def _check_slice(cfg) -> None:
-    if int(cfg.pipeline_microbatches) > 0:
-        raise NotImplementedError(f"pipeline_microbatches {mesh_lib.GPIPE}")
+def pipe_key(seed: int, step: int, index: int, chunk: bool) -> int:
+    """The key of a pipelined text forward's draws
+    (``parallel.pipeline.stream_generator``): the step's seed with the data
+    index (the direct step) or the GradCache chunk (``chunk``), so the
+    ranks of a pipe line draw alike and a chunk's re-forward draws its
+    first pass's masks."""
+    return pipeline.splitmix64(
+        ((seed & 0x7FFFFFFF) << 32) | (step & 0xFFFFFFFF), 1 + int(chunk),
+        index)
 
 
 def make_mi_step_body(model: ImageReportModel, txs: MIOptimizers, cfg,
@@ -331,14 +353,20 @@ def make_mi_step_body(model: ImageReportModel, txs: MIOptimizers, cfg,
     device; in a world (``mesh``), this rank's rows of the global batch.
     ``data_shards`` > 1 with ``cfg.global_negatives`` False: negatives
     only within each of that many contiguous blocks of the global batch,
-    the loss the mean over the blocks (JAX mi.py:189-199)."""
-    _check_slice(cfg)
+    the loss the mean over the blocks (JAX mi.py:189-199).  A 'pipe' axis
+    pipelines the text tower (the module's doc); the state must be placed
+    by ``parallel.mesh.shard_mi_state``."""
     estimator = cfg.mi_estimator
     score_fn = pairwise_critic_scores_pallas if cfg.use_pallas_critic \
         else pairwise_critic_scores
     chunks = max(1, int(cfg.grad_cache_chunks))
     world = mesh_lib.mesh_size(mesh)        # the 'data' axis
     tp = mesh is not None and mesh.tp
+    pp = pipeline.pipeline_stage_count(mesh) > 1
+    if pp:      # the configuration's errors before any step
+        pipeline.stage_layers(model.bert_config.num_hidden_layers, mesh)
+        microbatches = pipeline.microbatch_count(cfg.pipeline_microbatches,
+                                                 mesh)
     if tp:
         score_fn = lambda p, a, b: tp_critic_scores(  # noqa: E731
             p, a, b, mesh, use_pallas=cfg.use_pallas_critic)
@@ -354,8 +382,9 @@ def make_mi_step_body(model: ImageReportModel, txs: MIOptimizers, cfg,
     reduce_dtype = None
     if gad not in ("float32", ""):
         # composes with zero1 / fsdp, not with tp / sp (JAX mi.py:384-405)
-        if gad == "bfloat16" and world > 1 and not tp and chunks == 1 \
-                and blocks == 1 and not cfg.sequence_parallel:
+        if gad == "bfloat16" and world > 1 and not tp and not pp \
+                and chunks == 1 and blocks == 1 \
+                and not cfg.sequence_parallel:
             reduce_dtype = torch.bfloat16
         else:
             logger.warning(
@@ -416,14 +445,41 @@ def make_mi_step_body(model: ImageReportModel, txs: MIOptimizers, cfg,
         else:
             mesh_lib.broadcast_(critic_grads, mesh, axis=mesh_lib.DATA_AXIS)
 
-    def embed(batch, generator):
+    def sync_stage0(text_grads: dict) -> None:
+        """Under a pipeline: the embeddings' gradients, which stage 0 alone
+        computes, from stage 0 to its pipe line (after the 'data' sum)."""
+        if pp:
+            mesh_lib.broadcast_(
+                [g for n, g in text_grads.items()
+                 if n.startswith("bert.embeddings.")], mesh, src=0,
+                axis=mesh_lib.PIPE_AXIS)
+
+    def embed(batch, generator, key: int):
         """One towers' forward in train mode; decompacts here so that a
-        GradCache chunk widens only its own images."""
+        GradCache chunk widens only its own images.  Returns the two
+        embeddings and, under a pipeline, the stage's ``StageRun`` (the
+        text tower's draws keyed on ``key``), else None."""
         wide = decompact_batch(batch)
-        emb_img, emb_txt, _, _ = model(
-            wide["image"], wide["txt_ids"], wide["txt_masks"],
-            wide["txt_segments"], train=True, generator=generator)
-        return emb_img, emb_txt
+        if not pp:
+            emb_img, emb_txt, _, _ = model(
+                wide["image"], wide["txt_ids"], wide["txt_masks"],
+                wide["txt_segments"], train=True, generator=generator)
+            return emb_img, emb_txt, None
+        # every pipe rank runs the image tower whole (JAX replicates it
+        # over 'pipe'); the text tower runs the schedule
+        _, emb_img, _, _, _ = model.image_model(wide["image"], train=True)
+        emb_txt, _, run = pipeline.pipelined_textbert_apply(
+            model.text_model, mesh, wide["txt_ids"], wide["txt_segments"],
+            wide["txt_masks"], num_microbatches=microbatches,
+            deterministic=False, key=key)
+        return emb_img, emb_txt, run
+
+    def check_placed(state: MITrainState) -> None:
+        layout = _layout(state, "text_model")
+        if pp and (layout is None or layout.pipe is None):
+            raise ValueError("a 'pipe' mesh needs the state placed by "
+                             "parallel.mesh.shard_mi_state (the stages' "
+                             "text layers)")
 
     def groups_of(state: MITrainState) -> list:
         """The three parameter groups, whole (FSDP slices gathered)."""
@@ -452,6 +508,7 @@ def make_mi_step_body(model: ImageReportModel, txs: MIOptimizers, cfg,
         return state, loss.detach()
 
     def step_body(state: MITrainState, batch: dict):
+        check_placed(state)
         device = next(model.parameters()).device
         groups = groups_of(state)
         # BatchNorm over the 'data' axis, as one rank's over the global batch
@@ -459,19 +516,25 @@ def make_mi_step_body(model: ImageReportModel, txs: MIOptimizers, cfg,
         # the ranks of a data row share their masks (each applies its part)
         gen = step_generator(cfg.seed, state.step, device) if world == 1 \
             else rank_generator(cfg.seed, state.step, mesh.data_rank, device)
-        emb_img, emb_txt = embed(batch, gen)
+        emb_img, emb_txt, run = embed(
+            batch, gen, pp and pipe_key(cfg.seed, state.step, mesh.data_rank,
+                                        chunk=False))
         objective, loss = loss_from_embeddings(
             state.critic_params, emb_img, emb_txt, batch["study_id"])
         names = [(gi, n) for gi, g in enumerate(groups) for n in g]
         flat = [groups[gi][n] for gi, n in names]
         grads = [{}, {}, {}]
+        got = torch.autograd.grad(objective, flat + ([run.cls] if pp else []),
+                                  allow_unused=True)
         # parameters off the loss's path (BERT classifier, ResNet fc1) get
         # zeros, as JAX hands optax: adamw_hf still decays them
-        for (gi, n), t, g in zip(names, flat, torch.autograd.grad(
-                objective, flat, allow_unused=True)):
+        for (gi, n), t, g in zip(names, flat, got):
             grads[gi][n] = torch.zeros_like(t) if g is None else g
+        if pp:      # the reverse pipeline from the [CLS] rows' gradient
+            grads[1].update(run.backward(got[-1]))
         sync_grads([g for gi in (0, 1) for g in grads[gi].values()],
                    list(grads[2].values()))
+        sync_stage0(grads[1])
         return finish_step(state, loss, groups, grads)
 
     # GradCache over the world: each rank runs its share of the global
@@ -492,6 +555,7 @@ def make_mi_step_body(model: ImageReportModel, txs: MIOptimizers, cfg,
         draws from ``chunk_generator(seed, step, c)`` in both passes and
         sees the step's BatchNorm running statistics, which end as the
         mean of the chunks' updates (a data-parallel replica's semantics)."""
+        check_placed(state)
         size = batch["image"].shape[0]
         if size % local_chunks:
             logger.warning(
@@ -510,6 +574,8 @@ def make_mi_step_body(model: ImageReportModel, txs: MIOptimizers, cfg,
         gens = lambda: (chunk_generator(cfg.seed, state.step, first_chunk + c,
                                         device)
                         for c in range(local_chunks))
+        keys = [pp and pipe_key(cfg.seed, state.step, first_chunk + c,
+                                chunk=True) for c in range(local_chunks)]
         # _norm updates the running buffers in place where JAX returns new
         # ones: reset them before each chunk, then set them to the mean
         stats = list(state.batch_stats.values())
@@ -519,10 +585,10 @@ def make_mi_step_body(model: ImageReportModel, txs: MIOptimizers, cfg,
         # pass 1: embeddings only, no graph kept
         embs = []
         with torch.no_grad():
-            for part, gen in zip(parts, gens()):
+            for part, gen, key in zip(parts, gens(), keys):
                 for t, s in zip(stats, start):
                     t.copy_(s)
-                embs.append(embed(part, gen))
+                embs.append(embed(part, gen, key)[:2])
                 for tot, t in zip(total, stats):
                     tot.add_(t)
         mesh_lib.all_reduce_(total, mesh)
@@ -544,19 +610,24 @@ def make_mi_step_body(model: ImageReportModel, txs: MIOptimizers, cfg,
         # gradients back to the towers' parameters, into one set of buffers
         tower = [(gi, n, t) for gi in (0, 1) for n, t in groups[gi].items()]
         acc = [torch.zeros_like(t) for _, _, t in tower]
-        for r, part, gen in zip(rows, parts, gens()):
-            ei, et = embed(part, gen)
+        text_acc = {n: a for (gi, n, _), a in zip(tower, acc) if gi == 1}
+        for r, part, gen, key in zip(rows, parts, gens(), keys):
+            ei, et, run = embed(part, gen, key)
             for t, m in zip(stats, mean):   # pass 1 set the statistics
                 t.copy_(m)
-            for a, g in zip(acc, torch.autograd.grad(
-                    (ei, et), [t for _, _, t in tower],
-                    grad_outputs=(g_img[r].to(ei.dtype),
-                                  g_txt[r].to(et.dtype)),
-                    allow_unused=True)):
+            got = torch.autograd.grad(
+                (ei, et), [t for _, _, t in tower] + ([run.cls] if pp else []),
+                grad_outputs=(g_img[r].to(ei.dtype), g_txt[r].to(et.dtype)),
+                allow_unused=True)
+            for a, g in zip(acc, got):
                 if g is not None:   # off the path: stays zero, as in JAX
                     a.add_(g)
-            del ei, et
+            if pp:      # this chunk's reverse pipeline
+                for n, g in run.backward(got[-1]).items():
+                    text_acc[n].add_(g)
+            del ei, et, run
         sync_grads(acc, critic_g)
+        sync_stage0(text_acc)
         grads = [{}, {}, dict(zip(groups[2], critic_g))]
         for (gi, n, _), a in zip(tower, acc):
             grads[gi][n] = a
@@ -605,8 +676,9 @@ def mi_state_tree(state: MITrainState) -> dict:
     generator state: a step's generators are seeded from (seed, step)
     (``step_generator``, ``chunk_generator``) and the loader's from (seed,
     epoch, index).  The whole tensors whatever the state's placement: TP
-    pieces, ZeRO-1 moments and FSDP parameters are gathered (every rank
-    of a world calls it)."""
+    pieces, ZeRO-1 moments, FSDP parameters and the pipeline stages'
+    layers are gathered, so the tree is the plain one (every rank of a
+    world calls it)."""
     mesh = None if state.layout is None else state.layout.mesh
     tree = {"step": int(state.step)}
     for name, module, opt in (
@@ -680,9 +752,7 @@ def save_mi_checkpoints(save_dir: str, state: MITrainState, epoch: int,
 
 
 def _check_manager(cfg) -> None:
-    """The Manager's knobs of a later slice (GPipe) raise before anything
-    is written."""
-    _check_slice(cfg)
+    """The Manager's knobs raise before anything is written."""
     if cfg.checkpoint_format not in ckpt.FORMATS:
         raise ValueError(f"checkpoint_format {cfg.checkpoint_format!r} is "
                          f"not one of {ckpt.FORMATS}")
@@ -745,9 +815,11 @@ class MultiModalManager:
 
         ``mesh`` (default ``make_mesh(cfg.mesh_shape,
         cfg.dcn_mesh_shape)``, the world): each data index decodes its
-        slice of every global batch of ``cfg.batch_size`` rows, rank 0's
+        slice of every global batch of ``cfg.batch_size`` rows (the ranks
+        of one data index over 'model' and 'pipe' the same rows), rank 0's
         state is broadcast and placed (``shard_mi_state``: TP with a
-        'model' axis, ``cfg.zero1_optimizer_sharding``,
+        'model' axis, the stages' text layers with a 'pipe' axis,
+        ``cfg.zero1_optimizer_sharding``,
         ``cfg.fsdp_parameter_sharding``; ``cfg.sequence_parallel``),
         preemption is agreed on every 8 dispatches
         (``should_stop(sync=True)``), saves are the sharded format every

@@ -37,8 +37,8 @@ its depth; the port starts from JAX's initial weights (its
   same command with ``--resume_from auto`` ends on the uninterrupted
   run's bits (JAX's tests/test_cli_resume.py:60); ``--help`` lists the
   flags;
-* a 'pipe' mesh axis raises ``NotImplementedError`` naming its ROADMAP
-  queue A item (slice 3: GPipe), and the knobs the data-parallel and
+* a mesh with a 'pipe' axis asks one process for the 2 ranks it lacks
+  (``ValueError``), and the knobs the data-parallel and
   sharding slices lifted run (``checkpoint_format`` "orbax",
   ``bn_axis_name``, ZeRO-1, FSDP, a step on a mesh with a 'model' axis); ``profile_steps`` and ``tensorboard`` work (one
   epoch of 2 steps: a trace under ``profile/``, an event file under
@@ -69,12 +69,11 @@ EPOCHS = 2
 STEPS = 4
 LOSS_ATOL = 1e-7
 SIZES = ((80, 70), (64, 96), (50, 60))
-PARALLEL = "\"parallel/mesh.py and parallel/pipeline.py\""
 # None: lifted by the data-parallel slice (the knob runs); the meshes ask
 # for a 'model' axis, which the sharding modes bring
 # None: the knob runs (lifted by the data-parallel and the sharding slices);
-# a 'pipe' axis raises naming slice 3 (GPipe)
-REFUSALS = {"mesh_shape": "slice 3: GPipe", "zero1_optimizer_sharding": None,
+# a 'pipe' axis of 2 raises ValueError on one process
+REFUSALS = {"mesh_shape": "needs 2 ranks, the world has 1", "zero1_optimizer_sharding": None,
             "fsdp_parameter_sharding": None, "checkpoint_format": None,
             "bn_axis_name": None, "step_mesh": None}
 # the profiling knobs -> (value, what they write)
@@ -219,7 +218,7 @@ def test_later_slice_knobs_raise(results, knob):
     if REFUSALS[knob] is None:
         assert err == "no error", err
         return
-    assert err.startswith("NotImplementedError"), err
+    assert err.startswith("ValueError"), err
     assert REFUSALS[knob] in err, err
 
 

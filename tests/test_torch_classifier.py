@@ -29,9 +29,9 @@ and the validation metrics (metrics.py) against the JAX package's.
 * The metrics copies (``roc_auc`` with ties, ``binary_classification_
   report`` with empty denominators, ``gdv_calculation``,
   ``Plot_Training_From_Logfile``, ``PrintModel``) equal JAX's.
-* A mesh with a 'model' axis (the Manager's argument,
-  ``cfg.mesh_shape``) raises ``NotImplementedError`` naming its ROADMAP
-  queue A item (the sharding modes); ``make_embedding_fn`` takes the
+* A mesh with a 'model' axis (the Manager's argument) runs, and
+  ``cfg.mesh_shape`` with a 'pipe' axis of 2 asks one process for the
+  ranks it lacks (``ValueError``); ``make_embedding_fn`` takes the
   world's 'data' mesh (lifted by the data-parallel slice, it runs and
   embeds as without it); ``tensorboard`` works (one epoch writes an event
   file under ``tb/classifier_Pneumonia/``; tests/test_torch_profiling.py
@@ -57,12 +57,12 @@ CFG = dict(batch_size=BATCH, seed=0, img_size=IMG, init_lr=LR,
            compute_dtype="float32", prefetch=1, data_loader_workers=0,
            disease_label="Pneumonia", num_train_epochs_classifier=EPOCHS)
 VAL_FRACTION = 0.25
-PARALLEL = "\"parallel/mesh.py and parallel/pipeline.py\""
-# None: lifted by the data-parallel slice (the knob runs)
-# "slice 3: GPipe": a 'pipe' axis; None: the knob runs
-REFUSALS = {"mesh": None, "mesh_shape": "slice 3: GPipe",
+# None: the knob runs; else (the exception, a part of its message): a
+# 'pipe' axis of 2 asks one process for the ranks it lacks
+REFUSALS = {"mesh": None,
+            "mesh_shape": ("ValueError", "needs 2 ranks, the world has 1"),
             "embedding_mesh": None,
-            "schedule_with_moment_dtype": "queue C"}
+            "schedule_with_moment_dtype": ("NotImplementedError", "queue C")}
 STOP_STEP = 6
 LOG = ("03-01 10:00 - x   Epoch 2 loss = 0.25000\n"
        "03-01 10:00 - x   Epoch 1 loss = -1.50000\n"
@@ -307,8 +307,9 @@ def test_later_slice_knobs_raise(results, knob):
     if REFUSALS[knob] is None:
         assert err == "no error", err
         return
-    assert err.startswith("NotImplementedError"), err
-    assert REFUSALS[knob] in err, err
+    kind, part = REFUSALS[knob]
+    assert err.startswith(kind), err
+    assert part in err, err
 
 
 @pytest.mark.parametrize("knob", ["tensorboard"])

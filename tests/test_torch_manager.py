@@ -35,10 +35,11 @@ JAX package's (mimm_tpu/data/pipeline.py, mimm_tpu/train/mi.py:633-859).
   stem, which rounds as the port's does; measured 4.2e-7, 1.9e-5,
   1.5e-4).  The planted faults leave it too (at epoch 2: 6.6e-4, 3.5e-3,
   1.4e-4).
-* Every knob of a later slice raises ``NotImplementedError`` naming its
-  queue item by title, before anything is written (a mesh with a 'pipe'
-  axis and ``pipeline_microbatches``: slice 3, GPipe); ``checkpoint_format`` "orbax", which the
-  data-parallel slice lifted, writes its sharded directory; ``profile_steps`` and
+* The parallel slices' knobs on one process: a mesh with a 'pipe' axis
+  raises ``ValueError`` for the 2 ranks it lacks, before anything is
+  written; ``pipeline_microbatches`` without a 'pipe' axis trains (JAX
+  ignores it there) and ``checkpoint_format`` "orbax" writes its sharded
+  directory; ``profile_steps`` and
   ``tensorboard`` work (one step over 4 pairs: a trace under
   ``profile/``, an event file under ``tb/mi/``; tests/test_torch_profiling.py
   checks what they hold).
@@ -78,10 +79,9 @@ EPOCHS, STOP_AFTER = 4, 3
 LOSS_ATOL = (1e-5, 5e-5, 1e-4)
 STEM_ATOL = (1e-5, 1e-4, 4e-4)
 FAULTS = ("skipped_update", "epoch0_order", "t_total")
-# a later slice's knob -> the title of its ROADMAP queue A item
-# (None: lifted by the data-parallel slice, the knob runs; "mesh" asks for
-# a 'model' axis, which the sharding modes bring)
-KNOBS = {"mesh": "slice 3: GPipe", "pipeline_microbatches": "slice 3: GPipe",
+# a knob of the parallel slices -> the ValueError it raises on one
+# process (None: the knob runs and the epoch's checkpoint is written)
+KNOBS = {"mesh": "needs 2 ranks, the world has 1", "pipeline_microbatches": None,
          "checkpoint_format": None}
 # the profiling knobs -> what they write
 PROFILING_KNOBS = {"profile_steps": ("profile", ".pt.trace.json"),
@@ -287,11 +287,10 @@ def test_run_logging_moves_to_each_run_file(results):
 @pytest.mark.parametrize("knob", list(KNOBS))
 def test_later_slice_knobs_raise(results, knob):
     msg, wrote = results[3]["raises"][knob]
-    if KNOBS[knob] is None:      # "orbax": the epoch's sharded directory
+    if KNOBS[knob] is None:
         assert msg == "no error" and "mi_epoch1.ckpt" in wrote, (msg, wrote)
         return
-    assert msg.startswith("NotImplementedError") and "queue A" in msg \
-        and KNOBS[knob] in msg, msg
+    assert msg.startswith("ValueError") and KNOBS[knob] in msg, msg
     assert wrote == [], wrote
 
 

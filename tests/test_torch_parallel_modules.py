@@ -26,7 +26,7 @@ one process on the same inputs.
   ``dcn_mesh_shape`` without or beyond ``mesh_shape``); the knobs of the
   sharding modes on one process (a 'model' axis, ZeRO-1, FSDP, sequence
   parallelism, the TP placements, a placed state) work, and a 'pipe' axis
-  raises ``NotImplementedError`` naming slice 3 (GPipe);
+  asks one process for the 2 ranks it lacks (``ValueError``);
   ``initialize_distributed`` is a no-op for one process and for a group
   that already exists.  tests/test_torch_tensor_parallel.py and
   tests/test_torch_zero.py hold the modes in worlds of ranks.
@@ -45,10 +45,10 @@ LR = 1e-3
 AE_SMALL = dict(n_residual_blocks=1, n_levels=3, z_dim=16, bottleneck_dim=32)
 AE_768 = dict(n_residual_blocks=1, n_levels=3, z_dim=16, bottleneck_dim=768)
 SLICE2 = "slice 2"
-# what each knob of the sharding modes gives on one process (the 'pipe'
-# axis raises naming slice 3, GPipe)
+# what each knob of the sharding modes gives on one process (a 'pipe'
+# axis of 2 lacks its ranks)
 SHARDING_KNOBS = {
-    "model_axis": "{'data': 1, 'model': 1}", "pipe_axis": "slice 3: GPipe",
+    "model_axis": "{'data': 1, 'model': 1}", "pipe_axis": "needs 2 ranks, the world has 1",
     "zero1": "no error", "fsdp": "no error", "sequence_parallel": "no error",
     "bert_tp": "query 0, attention output 1, output 1, LayerNorm None",
     "critic_tp": "[{'w': 1, 'b': 0}, {'w': 0, 'b': None}, "
@@ -232,12 +232,12 @@ def test_mesh_validation(results):
                                   "critic_tp", "seq_sharding",
                                   "shard_state_zero1", "ae_zero1"])
 def test_sharding_modes_refuse_naming_slice2(results, knob):
-    """Slice 2's modes run now (one process); only the 'pipe' axis
-    raises, naming slice 3 and no longer slice 2."""
+    """The sharding modes run (one process); the 'pipe' axis is checked
+    against the world like any axis, naming no slice."""
     _, _, got = results
     res = got["w1"][1]["refusals"][knob]
     if knob == "pipe_axis":
-        assert res.startswith("NotImplementedError") and SLICE2 not in res
+        assert res.startswith("ValueError") and SLICE2 not in res
     assert SHARDING_KNOBS[knob] in res, res
 
 

@@ -298,14 +298,14 @@ def test_production_f32_flash_step_matches_jax(results):
 
 
 def test_unported_knobs_raise(results):
-    """A knob of a later slice raises (a mesh with a 'pipe' axis: slice 3,
-    GPipe), and ZeRO-1, which the sharding slice ported, builds its step;
+    """A mesh with a 'pipe' axis of 2 asks one process for the ranks it
+    lacks, and ZeRO-1, which the sharding slice ported, builds its step;
     ``s2d_stem`` with ``pallas_stem`` raises JAX's ValueError
     (mimm_tpu/models/resnet.py:246-247)."""
     meta = results[2]
     assert meta["raises"]["zero1_optimizer_sharding"] == "no error"
-    assert meta["raises"]["mesh"].startswith("NotImplementedError") \
-        and "slice 3" in meta["raises"]["mesh"], meta["raises"]["mesh"]
+    assert meta["raises"]["mesh"].startswith("ValueError") \
+        and "needs 2 ranks, the world has 1" in meta["raises"]["mesh"], meta["raises"]["mesh"]
     assert meta["raises"]["s2d_and_pallas_stem"] == \
         "ValueError: s2d_stem and pallas_stem are exclusive"
 

@@ -23,9 +23,9 @@ points, ``mimm_tpu_torch.cli.train --stage classifier_um`` and
   a run stopped after its first step (``preempt.request()``) leaves
   ``classifier_Cardiomegaly_preempt.ckpt`` and trains no second disease;
   the same command with ``--resume_from auto`` ends both diseases on the
-  uninterrupted run's bits; ``--mesh_shape`` with a 'model' axis (the
-  sharding modes) raises there and in ``cli.validate``, naming its
-  ROADMAP queue A item; ``--help`` lists the
+  uninterrupted run's bits; ``--mesh_shape`` with a 'pipe' axis of 2
+  asks one process for the ranks it lacks (``ValueError``) there and in
+  ``cli.validate``; ``--help`` lists the
   stage.
 * ``cli.validate --modality um --extended`` on those files prints JAX's
   ``cli/validate.py`` lines: the same keys in the same order, integers
@@ -58,7 +58,6 @@ SIZES = {"mm": 256, "um": 64}
 WIDTH = {"mm": PLANES[-1] * 4, "um": 40}
 CLI_IMG, CLI_N, CLI_EPOCHS = 64, 30, 2
 DISEASES = ("Cardiomegaly", "Pneumonia")
-PARALLEL = "\"parallel/mesh.py and parallel/pipeline.py\""
 INTS = ("tp", "tn", "fp", "fn", "positives", "negatives")
 FLOATS = ("accuracy", "separability", "auc", "precision", "recall", "f1")
 
@@ -266,8 +265,8 @@ def test_cli_resume_auto_ends_on_the_uninterrupted_bits(results):
 def test_cli_refuses_a_mesh_and_lists_its_flags(results):
     cli = results[2]["cli"]
     for refused in (cli["mesh"], cli["validate_mesh"]):   # a 'pipe' axis
-        assert refused.startswith("NotImplementedError"), refused
-        assert PARALLEL in refused and "slice 3" in refused
+        assert refused.startswith("ValueError"), refused
+        assert "needs 2 ranks, the world has 1" in refused, refused
     assert cli["help_rc"] == 0
     for flag in ("--stage", "--device", "--num_train_epochs_classifier",
                  "--dataset_disease_stats"):
