@@ -244,20 +244,41 @@ no arguments.  Phases:
    checkpoint against the world's gathered state in the plain layout, the
    converter's ``.bin`` files loaded strict, one rank resuming epoch 2
    from it;
-19. the ``kernels`` JSON line, the card line, and as the last line
+19. the serving export (``tools/export_serving.py``; ``drive_export``):
+   phase 4's checkpoints (the 12-layer BERT-base with the flash gate open,
+   B=64, L=320, the Pneumonia classifier) exported to ``embed_images``,
+   ``embed_texts`` and ``classify`` artifacts on the card, and
+   ``embed_texts`` again with the fused FFN (phase 9's serving config);
+   a child process that imports only the manifest's ``requires`` (the
+   custom operators' modules, never ``mimm_tpu_torch.models``) loads and
+   runs them: each artifact within 1e-5 (max |Δ| / max(1, max |ref|)) of
+   the live float32 ``InferenceSession`` over phase 4's requests, the f32
+   flash forward 12 times and the f32 fused FFN forward 12 times a 64-row
+   text batch; the export and reload seconds, the artifacts' bytes and
+   the ms of a batch through the artifact beside the session's;
+20. the CLI and ETL rest on the card's host (``drive_etl``):
+   ``cli.dataset_populate`` (download without fetching, merge, populate,
+   stats) over a seeded MIMIC-like tree, read back through
+   ``read_disease_stats`` and the datasets; ``tools.derive_buckets``,
+   ``tools.corpus_check`` (0 broken) and ``cli.prebuild_cache`` (every
+   entry valid) over phase 12's corpus; ``tools.mem_report`` equal to the
+   byte to the resident bytes phases 17 (c), 17 (d) and 18 (c) counted;
+21. the ``kernels`` JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Every phase prints its host-clock seconds with the card's name and power
 limit as it ends.  Any failure raises and exits non-zero; without a card
-it exits before printing any result.  ``python3 chip_smoke.py --phase17``
-(``--phase18``) runs phases 1, 2 and 17 (18) and phase 3's flash times
-alone, a development run that prints no result lines.
+it exits before printing any result.  Development runs that print no
+result lines: ``python3 chip_smoke.py --phase17`` (``--phase18``,
+``--phase19``) runs phases 1, 2 and 17 (18, 19) and phase 3's flash times
+alone; ``--phase20`` runs those and phases 17, 18 and 20.
 """
 
 from __future__ import annotations
 
 import atexit
 import collections
+import concurrent.futures
 import contextlib
 import copy
 import io
@@ -563,9 +584,13 @@ def sass_counts(libs: dict) -> dict:
     for src in {lib for lib, _, _ in SASS_FUNCTIONS.values()}:
         usage.update({(src, f): u for f, u in
                       ptxas_usage(_build.ptxas_reports.get(src, "")).items()})
-    for src in sorted({lib for lib, _, _ in SASS_FUNCTIONS.values()}):
-        sass = subprocess.run([tool, "-sass", libs[src]], capture_output=True,
-                              text=True, check=True).stdout
+    sources = sorted({lib for lib, _, _ in SASS_FUNCTIONS.values()})
+    # one cuobjdump a library, all started together
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        dumps = pool.map(lambda src: subprocess.run(
+            [tool, "-sass", libs[src]], capture_output=True, text=True,
+            check=True).stdout, sources)
+    for src, sass in zip(sources, dumps):
         name = None
         for line in sass.splitlines():
             if "Function :" in line:
@@ -6215,7 +6240,8 @@ def zero_steps(mesh, device, spec: dict, zero1: bool, fsdp: bool) -> dict:
 def ae_zero_steps(mesh, device, spec: dict, zero1: bool, fsdp: bool) -> dict:
     """(d): two f32 steps of the full-width autoencoder over this data
     index's rows (sync-BN), placed by ``shard_ae_state(zero1=, fsdp=)``:
-    the losses and the whole state (``ae_state_tree``) after them."""
+    the losses, the rank's resident bytes of parameters and moments after
+    them and the whole state (``ae_state_tree``)."""
     from mimm_tpu_torch.models.autoencoder import ResNetAE
     from mimm_tpu_torch.train import ae
 
@@ -6234,6 +6260,10 @@ def ae_zero_steps(mesh, device, spec: dict, zero1: bool, fsdp: bool) -> dict:
     for x in images:
         state, loss = step(state, x)
         out["losses"].append(loss.item())
+    tensors = list(state.model.parameters())
+    mesh_lib._map_moments(state.opt_state,
+                          lambda m: tensors.extend(m.values()) or m)
+    out["bytes"] = sum(t.numel() * t.element_size() for t in tensors)
     tree = ae.ae_state_tree(state)
     out["snap"] = {"model": {n: t.detach().float().cpu().clone()
                              for n, t in tree["model"].items()
@@ -6326,7 +6356,7 @@ def tp_worker(job: str, mesh_tp, dev, spec: dict) -> dict:
             "zero1": False, "fsdp": False, **kw})
             for mode, kw in TP_ZERO_MODES.items() if mode != "zero1"}
         for mode, r in ae_runs.items():
-            out["ae"][mode] = {"losses": r["losses"],
+            out["ae"][mode] = {"losses": r["losses"], "bytes": r["bytes"],
                                "differ": _snap_differ(
                                    r["snap"], ae_runs["replicated"]["snap"])}
     if rank < TP_WORLD:
@@ -6656,7 +6686,12 @@ def drive_tp(root: str, device, backend: str = "gloo", spec=None) -> dict:
         ffn.update(rk["ffn_launches"])
     return {"tp_world": dict(count("a")), "sp_world": dict(count("b")),
             "zero_world": dict(zero), "tp_cli": dict(cli),
-            "tp_ffn": dict(ffn), "seconds": seconds_all}
+            "tp_ffn": dict(ffn), "seconds": seconds_all,
+            # each rank's counted resident bytes of (c) and (d), by mode
+            "zero_bytes": [{m: z["bytes"]["counted"]
+                            for m, z in rk["zero"].items()} for rk in ranks],
+            "ae_bytes": [{m: z["bytes"] for m, z in rk["ae"].items()}
+                         for rk in ranks]}
 
 
 # ---- phase 18: GPipe pipeline parallelism of the text tower ---------------
@@ -6998,7 +7033,500 @@ def drive_pp(root: str, device, backend: str = "gloo", spec=None) -> dict:
             "pp_remat": dict(total(l for rk in ranks
                                    for l in rk["b"]["launches"])),
             "pp_cli": dict(total(r["launches"] for r in runs)),
-            "seconds": seconds_all}
+            "seconds": seconds_all,
+            # each rank's (c) bytes: counted, by the stage rule, one rank's
+            "resident": [rk["a"]["resident"] for rk in ranks]}
+
+
+# ---- phase 19: the serving export -------------------------------------------
+
+# artifact vs the live float32 session, max |Δ| / max(1, max |ref|): the
+# same kernels run in the same order on the same weights, so expect 0
+EXPORT_TOL = 1e-5
+EXPORT_TIMED = 3        # batches timed through each artifact and session
+# the inputs of each entry point, by their names in the child's in.npz
+EXPORT_INPUTS = {"embed_images": ["images"],
+                 "embed_texts": ["ids", "masks", "segs"],
+                 "classify": ["images"]}
+# the reload child: it imports only the manifests' ``requires`` (and
+# torch, numpy), takes the parent's TF32 settings (PyTorch's default runs
+# cuDNN convolutions in TF32, which the parent turns off), loads each
+# artifact set as its manifest appears (the parent exports the next set
+# meanwhile), runs each entry once with the kernels' counts from 0, and
+# when every set is in, times each entry; writes out.npz / out.json
+EXPORT_CHILD = r"""
+import importlib, json, os, statistics, sys, time
+import numpy as np
+import torch
+
+job = sys.argv[1]
+with open(os.path.join(job, "job.json")) as f:
+    spec = json.load(f)
+torch.backends.cudnn.allow_tf32 = spec["tf32"]["cudnn"]
+torch.backends.cuda.matmul.allow_tf32 = spec["tf32"]["matmul"]
+x = dict(np.load(os.path.join(job, "in.npz")))
+out, meta = {}, {"load_s": {}, "ms": {}, "launches": {}}
+programs, modules = {}, {}
+deadline = time.monotonic() + spec["wait_s"]
+for name, d in spec["sets"].items():
+    path = os.path.join(d, "manifest.json")     # written last by the export
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            sys.exit(f"no manifest at {path}")
+        time.sleep(0.05)
+    with open(path) as f:
+        mf = json.load(f)
+    for m in mf["requires"]:
+        modules[m] = importlib.import_module(m)
+    dev = torch.device(mf["device"])
+    for entry, e in mf["entries"].items():
+        key = f"{name}/{entry}"
+        t0 = time.perf_counter()
+        program = torch.export.load(os.path.join(d, e["file"])).module()
+        meta["load_s"][key] = time.perf_counter() - t0
+        args = [x[k] for k in spec["inputs"][entry]]
+
+        def call(program=program, args=args, dev=dev):
+            with torch.inference_mode():
+                return program(*[torch.from_numpy(a).to(dev)
+                                 for a in args]).cpu().numpy()
+        for m in modules.values():
+            m.reset_launch_counts()
+        out[key] = call()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        meta["launches"][key] = {k: v for m in modules.values()
+                                 for k, v in m.LAUNCHES.items()}
+        programs[key] = (call, dev)
+sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+for key, (call, dev) in programs.items():
+    walls = []
+    for _ in range(spec["timed"]):
+        sync()
+        t0 = time.perf_counter()
+        call()
+        walls.append(time.perf_counter() - t0)
+    meta["ms"][key] = 1e3 * statistics.median(walls)
+meta["modules"] = sorted(m for m in sys.modules
+                         if m.startswith("mimm_tpu_torch"))
+np.savez(os.path.join(job, "out.npz"), **out)
+with open(os.path.join(job, "out.json"), "w") as f:
+    json.dump(meta, f)
+"""
+
+
+def drive_export(root: str, device, bert_kw=BERT_BASE, ffn_kw=FFN_SERVE_BERT,
+                 batch=BATCH, seq=SEQ) -> dict:
+    """Phase 19: phase 4's checkpoints through ``export_artifacts`` (all
+    three entries, and ``embed_texts`` again under ``ffn_kw``) on
+    ``device``, reloaded and run in a child that imports only the
+    ``requires``, started after the first set's export: it loads that set
+    while this process exports the second and computes the live float32
+    sessions' outputs over phase 4's requests.  Each artifact held to
+    EXPORT_TOL against them, and (on the card) the flash and fused FFN
+    forwards once a layer a text batch; the sessions timed after the
+    child.  Returns the artifacts' launches and the numbers."""
+    from mimm_tpu_torch.tools import export_serving
+
+    cuda = torch.device(device).type == "cuda"
+    card = card_line() if cuda else "cpu"
+    started = time.perf_counter()
+    save, bert_dir, _ = write_checkpoints(root, bert_kw)
+    ffn_dir = os.path.join(root, "bert_ffn")
+    os.makedirs(ffn_dir)
+    with open(os.path.join(ffn_dir, "bert_config.json"), "w") as f:
+        json.dump(ffn_kw, f, indent=2)
+    images_u8, ids, masks = make_requests(batch, seq, bert_kw["vocab_size"])
+    x = {"images": device_normalize(torch.from_numpy(
+        images_u8[..., None])).numpy(), "ids": ids, "masks": masks,
+        "segs": np.zeros_like(ids)}
+    layers = bert_kw["num_hidden_layers"]
+    sets = {"base": os.path.join(root, "exported"),
+            "ffn": os.path.join(root, "exported_ffn")}
+    job = os.path.join(root, "reload")
+    os.makedirs(job)
+    np.savez(os.path.join(job, "in.npz"), **x)
+    with open(os.path.join(job, "job.json"), "w") as f:
+        json.dump({"sets": sets, "inputs": EXPORT_INPUTS,
+                   "timed": EXPORT_TIMED, "wait_s": 600,
+                   "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
+                            "matmul": torch.backends.cuda.matmul.allow_tf32}},
+                  f)
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    manifests = {"base": export_serving.export_artifacts(
+        save, sets["base"], batch_size=batch, bert_pretrained_dir=bert_dir,
+        disease="Pneumonia", max_seq_length=seq, device=device)}
+    export_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", EXPORT_CHILD, job],
+                            env=env, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    manifests["ffn"] = export_serving.export_artifacts(
+        save, sets["ffn"], batch_size=batch, bert_pretrained_dir=ffn_dir,
+        max_seq_length=seq, device=device, entries=["embed_texts"])
+    _sync(device)
+    export_s += time.perf_counter() - t0
+    _empty_cache(device)
+    sizes = {f"{name}/{entry}": os.path.getsize(os.path.join(
+        sets[name], e["file"])) for name, mf in manifests.items()
+        for entry, e in mf["entries"].items()}
+    # meanwhile, the live float32 sessions' outputs over the same inputs
+    sessions = {
+        "base": InferenceSession(
+            save, batch_size=batch, bert_config=BertConfig(**bert_kw),
+            classifier_layers=list(DEFAULT_CLASSIFIER_LAYERS),
+            disease="Pneumonia", max_seq_length=seq, device=device),
+        "ffn": InferenceSession(save, batch_size=batch,
+                                bert_config=BertConfig(**ffn_kw),
+                                max_seq_length=seq, device=device)}
+    want = {f"{name}/{entry}": getattr(sessions[name], entry)(
+        *[x[k] for k in EXPORT_INPUTS[entry]])
+        for name, mf in manifests.items() for entry in mf["entries"]}
+    try:
+        _, stderr = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    reload_s = time.perf_counter() - t1
+    if proc.returncode != 0:
+        raise AssertionError(f"the reload child failed (rc "
+                             f"{proc.returncode}): {stderr[-4000:]}")
+    with np.load(os.path.join(job, "out.npz")) as z:
+        got = {k: z[k] for k in z.files}
+    with open(os.path.join(job, "out.json")) as f:
+        meta = json.load(f)
+    for d in sets.values():
+        shutil.rmtree(d)
+    bad = []
+    print(f"  exported {sorted(sizes)} on {manifests['base']['device']} in "
+          f"{export_s:.1f} s; the reload child (imports "
+          f"{manifests['base']['requires']}) in {reload_s:.1f} s (host clock, "
+          f"process start included, the second export and the sessions' "
+          f"outputs beside it; loads "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in meta["load_s"].items())
+          + f")  [{card}]")
+    models = [m for m in meta["modules"]
+              if m.startswith("mimm_tpu_torch.models")]
+    print(f"  the child's port modules: {meta['modules']}")
+    if models:
+        bad.append(f"the reload child loaded {models}")
+    session_ms = {}
+    for key in sorted(got):
+        name, entry = key.split("/")
+        fn = getattr(sessions[name], entry)
+        args = [x[k] for k in EXPORT_INPUTS[entry]]
+        walls = []
+        for _ in range(EXPORT_TIMED):
+            _sync(device)
+            t0 = time.perf_counter()
+            fn(*args)
+            walls.append(time.perf_counter() - t0)
+        session_ms[key] = 1e3 * statistics.median(walls)
+        try:
+            check_response(f"artifact {key}", got[key], want[key],
+                           EXPORT_TOL, varied=entry != "classify")
+        except AssertionError as e:
+            bad.append(str(e))
+        print(f"  {key}: {sizes[key] / 2 ** 20:.1f} MiB; a batch of {batch} "
+              f"in {meta['ms'][key]:.2f} ms through the artifact, "
+              f"{session_ms[key]:.2f} ms through the session (host clock, "
+              f"median of {EXPORT_TIMED}, copies included); launches "
+              f"{meta['launches'][key]}  [{card}]")
+    want_launches = {"base/embed_texts": {fa.KERNELS[torch.float32]: layers},
+                     "ffn/embed_texts": {fa.KERNELS[torch.float32]: layers,
+                                         ff.KERNELS["fwd"]: layers}}
+    for key, launched in meta["launches"].items():
+        want = want_launches.get(key, {}) if cuda else {}
+        if launched != want:
+            bad.append(f"{key} launched {launched}, want {want}")
+    del sessions
+    _empty_cache(device)
+    seconds = time.perf_counter() - started
+    print(f"  phase 19: {seconds:.1f} s (host clock)  [{card}]")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    total = collections.Counter()
+    for key in ("base/embed_images", "base/embed_texts", "base/classify"):
+        total.update(meta["launches"][key])
+    return {"launches": dict(total),
+            "ffn_launches": dict(meta["launches"]["ffn/embed_texts"]),
+            "export_s": export_s, "reload_s": reload_s, "bytes": sizes,
+            "ms": meta["ms"], "session_ms": session_ms, "seconds": seconds}
+
+
+# ---- phase 20: the CLI and ETL rest on the card's host ------------------------
+
+ETL_STUDIES = 1000
+ETL_DISEASES = ("Atelectasis", "Cardiomegaly", "Consolidation", "Edema",
+                "Enlarged Cardiomediastinum", "Fracture", "Lung Lesion",
+                "Lung Opacity", "No Finding", "Pleural Effusion",
+                "Pleural Other", "Pneumonia", "Pneumothorax",
+                "Support Devices")
+ETL_WORDS = ("the", "heart", "size", "is", "normal", "no", "focal",
+             "consolidation", "pleural", "effusion", "lungs", "are", "clear",
+             "mild", "cardiomegaly", "stable", "left", "right", "lower",
+             "lobe", "opacity", "atelectasis", "tube", "in", "place")
+
+
+def write_mimic_tree(root: str, studies: int, seed: int) -> dict:
+    """A seeded MIMIC-CXR-like tree of ``studies`` studies over the
+    subfolders p10 and p11, as ``DatasetConfig`` paths: the metadata
+    ``.csv.gz`` (one to three dicoms a study, PA / AP / LATERAL views),
+    one report a study (a FINDINGS: section or none, an IMPRESSION: or
+    none, header lines with colons, some with no text left), an empty
+    image file for most dicoms, and the NegBio label ``.csv.gz`` (1.0,
+    0.0, -1.0 or empty per disease).  Returns the config's fields."""
+    import gzip
+
+    rng = np.random.default_rng(seed)
+    full = os.path.join(root, "full_data_set")
+    cfg = {"data_dir": full,
+           "image_storage_dir": os.path.join(full, "images"),
+           "text_storage_dir": os.path.join(full, "text")}
+    for k, sub in (("training", "training_data"), ("testing", "testing_data")):
+        d = os.path.join(root, sub)
+        cfg[f"{k}_data_dir"] = d
+        cfg[f"{k}_image_dir"] = os.path.join(d, "images")
+        cfg[f"{k}_text_dir"] = os.path.join(d, "text")
+        cfg[f"{k}_dataset_labeldata"] = os.path.join(
+            d, f"{k}_label_negbio.csv")
+
+    def sentence():
+        words = rng.choice(ETL_WORDS, int(rng.integers(3, 12)))
+        return " ".join(words).capitalize() + "."
+
+    meta = ["dicom_id,subject_id,study_id,"
+            "PerformedProcedureStepDescription,ViewPosition"]
+    labels = ["subject_id,study_id," + ",".join(ETL_DISEASES)]
+    for i in range(studies):
+        sub = ("p10", "p11")[i % 2]
+        subject, study = f"{sub[1:]}{i:06d}", str(50000000 + i)
+        for v in range(int(rng.integers(1, 4))):
+            dicom = f"{i:08x}-{v}"
+            view = ("PA", "AP", "LATERAL")[int(rng.integers(0, 3))]
+            meta.append(f"{dicom},{subject},{study},CHEST,{view}")
+            if rng.random() < 0.9:
+                img = os.path.join(cfg["image_storage_dir"], sub,
+                                   f"p{subject}_s{study}_{dicom}.jpg")
+                os.makedirs(os.path.dirname(img), exist_ok=True)
+                open(img, "wb").close()
+        lines = ["FINAL REPORT", f"EXAMINATION: CHEST (PA AND LAT) {i}",
+                 f"INDICATION: {sentence()}", ""]
+        kind = int(rng.integers(0, 4))
+        if kind == 0:       # FINDINGS and IMPRESSION sections
+            lines += ["FINDINGS: " + sentence(), sentence(), "",
+                      "IMPRESSION:", sentence()]
+        elif kind == 1:     # paragraphs only, one with a colon
+            lines += [sentence(), "", f"COMPARISON: {sentence()}",
+                      sentence()]
+        elif kind == 2:     # an IMPRESSION after a paragraph
+            lines += [sentence(), "", "IMPRESSION: " + sentence()]
+        # kind 3: headers only, nothing left to extract
+        path = os.path.join(cfg["text_storage_dir"], sub, f"s{study}.txt")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        cells = rng.choice(["1.0", "0.0", "-1.0", ""], len(ETL_DISEASES),
+                           p=[0.2, 0.4, 0.1, 0.3])
+        labels.append(f"{subject},{study}," + ",".join(cells))
+    os.makedirs(full, exist_ok=True)
+    for name, rows in (("mimic-cxr-2.0.0-metadata.csv.gz", meta),
+                       ("mimic-cxr-2.0.0-negbio.csv.gz", labels)):
+        with gzip.open(os.path.join(full, name), "wt") as f:
+            f.write("\n".join(rows) + "\n")
+    return cfg
+
+
+def _flags(cfg: dict) -> list:
+    return [a for k, v in cfg.items() for a in (f"--{k}", v)]
+
+
+def _main_out(main, argv) -> tuple:
+    """(return value, standard output) of an entry point's ``main``."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue()
+
+
+def drive_etl(root: str, device, tp: dict, pp: dict, bert_kw=TRAIN_BERT,
+              studies=ETL_STUDIES, spec=None) -> dict:
+    """Phase 20: ``cli.dataset_populate``'s stages over
+    ``write_mimic_tree``, read back through ``read_disease_stats`` and the
+    datasets; ``tools.derive_buckets``, ``tools.corpus_check`` and
+    ``cli.prebuild_cache`` over phase 12's corpus (``write_cli_corpus``
+    with phase 12's arguments); ``tools.mem_report`` against the resident
+    bytes phases 17 (c) / (d) (``tp``) and 18 (c) (``pp``) counted, at
+    their configurations.  Host code only: ``device`` names the card of
+    the phases whose bytes it reads."""
+    import csv
+
+    from mimm_tpu_torch.cli import dataset_populate, prebuild_cache
+    from mimm_tpu_torch.data import etl
+    from mimm_tpu_torch.data.pipeline import (CXRImageDataset,
+                                              CXRImageDiseaseDataset)
+    from mimm_tpu_torch.tools import corpus_check, derive_buckets, mem_report
+
+    spec = dict(TP_SPEC, **(spec or {}))
+    card = card_line() if torch.device(device).type == "cuda" else "cpu"
+    started = time.perf_counter()
+    bad = []
+    # ---- the ETL through its entry point ---------------------------------------
+    cfg = write_mimic_tree(os.path.join(root, "mimic"), studies, SEED + 91)
+    written = time.perf_counter() - started
+    t0 = time.perf_counter()
+    for stage in ("download", "merge", "populate", "stats"):
+        dataset_populate.main(["--stage", stage, "--subfolders", "p10,p11",
+                               *_flags(cfg)])
+    etl_s = time.perf_counter() - t0
+
+    def rows(path, **kw):
+        with open(path, newline="") as f:
+            return list(csv.reader(f, **kw))
+    subs = [rows(os.path.join(cfg["text_storage_dir"],
+                              f"data_subfolder_{s}.tsv"), delimiter="\t")
+            for s in ("p10", "p11")]
+    merged = rows(os.path.join(cfg["training_text_dir"], "all_data.tsv"),
+                  delimiter="\t")
+    split = {k: rows(os.path.join(cfg[f"{k}_text_dir"], f"{k}_data.tsv"),
+                     delimiter="\t") for k in ("training", "testing")}
+    disease = "Cardiomegaly"
+    read_back = {}
+    for k in ("training", "testing"):
+        table = rows(cfg[f"{k}_dataset_labeldata"])
+        col = table[0].index(disease)
+        stats = os.path.join(cfg[f"{k}_data_dir"], "disease_stats.csv")
+        pos, neg = etl.read_disease_stats(stats, disease)
+        ds = CXRImageDiseaseDataset(cfg["image_storage_dir"],
+                                    cfg[f"{k}_dataset_labeldata"], disease,
+                                    stats)
+        read_back[k] = {
+            "rows": len(CXRImageDataset(cfg["image_storage_dir"],
+                                        cfg[f"{k}_dataset_labeldata"])),
+            "pos": len(pos), "neg": len(neg),
+            "want": (sum(r[col] == "1.0" for r in table[1:]),
+                     sum(r[col] == "0.0" for r in table[1:])),
+            "dataset": len(ds), "labels": int(sum(ds.labels))}
+        r = read_back[k]
+        if r["rows"] != len(split[k]) or (r["pos"], r["neg"]) != r["want"] \
+                or (r["dataset"], r["labels"]) != (r["pos"] + r["neg"],
+                                                   r["pos"]):
+            bad.append(f"{k} read back: {r}, split rows {len(split[k])}")
+    print(f"  cli.dataset_populate over {studies} studies (tree written in "
+          f"{written:.1f} s): download (no fetch) p10 / p11 "
+          f"{[len(s) for s in subs]} studies, merge {len(merged)}, populate "
+          f"{len(split['training'])} train / {len(split['testing'])} test, "
+          f"stats; {etl_s:.1f} s (host clock); read back through "
+          f"read_disease_stats and the datasets ({disease}): "
+          + ", ".join(f"{k} {v['rows']} rows, {v['pos']} pos / {v['neg']} "
+                      f"neg, disease set {v['dataset']}"
+                      for k, v in read_back.items()) + f"  [{card}]")
+    if len(merged) != sum(map(len, subs)) or \
+            len(split["training"]) + len(split["testing"]) == 0 or \
+            not 0 < len(split["testing"]) < len(split["training"]):
+        bad.append(f"ETL rows: subfolders {[len(s) for s in subs]}, merged "
+                   f"{len(merged)}, split {[len(v) for v in split.values()]}")
+    # ---- phase 12's corpus: derive_buckets, corpus_check, prebuild_cache -------
+    t0 = time.perf_counter()
+    corpus = write_cli_corpus(os.path.join(root, "corpus"), CLI_PAIRS,
+                              CLI_LONG, BERT_BASE["vocab_size"], 256,
+                              SEED + 23)
+    tsv = os.path.join(corpus["text"], "all_data.tsv")
+    want_len = sorted(min(len(r[4].split()) + 2, SEQ)
+                      for r in rows(tsv, delimiter="\t"))
+    _, text = _main_out(derive_buckets.main, [
+        "--tsv_glob", tsv, "--vocab", os.path.join(corpus["bert"],
+                                                   "vocab.txt")])
+    buckets = json.loads(text)
+    n = len(want_len)
+    pct = {q: want_len[min(n - 1, int(n * f))]
+           for q, f in (("p50", 0.5), ("p90", 0.9), ("p99", 0.99))}
+    shares = {str(b): round(s, 4) for b, s in derive_buckets.shares_for(
+        want_len, PRODUCTION_SEQ_BUCKETS).items()}
+    got_shares = next(c["shares"] for c in buckets["candidates"]
+                      if tuple(c["buckets"]) == PRODUCTION_SEQ_BUCKETS)
+    print(f"  tools.derive_buckets over phase 12's {n} reports (the port's "
+          f"WordPiece): percentiles {buckets['percentiles']}, shares of "
+          f"{PRODUCTION_SEQ_BUCKETS} {got_shares}")
+    if buckets["n_reports"] != n or any(
+            buckets["percentiles"][q] != v for q, v in pct.items()) \
+            or got_shares != shares:
+        bad.append(f"derive_buckets: {buckets['percentiles']} "
+                   f"{got_shares}, want {pct} {shares}")
+    rc, text = _main_out(corpus_check.main, [
+        "--metadata", corpus["metadata"], "--image_dir", corpus["images"],
+        "--text_dir", corpus["text"], "--vocab_dir", corpus["bert"],
+        "--decoded_crop_cache", corpus["cache"]])
+    print("  tools.corpus_check over phase 12's corpus: "
+          + "; ".join(line.strip() for line in text.splitlines()[:2])
+          + f" (exit {rc})")
+    if rc != 0 or f"total records:      {n}" not in text:
+        bad.append(f"corpus_check exit {rc}: {text[-500:]}")
+    rc, text = _main_out(prebuild_cache.main, [
+        "--image_dir", corpus["images"], "--cache_dir", corpus["cache"],
+        "--metadata", corpus["metadata"], "--report_every", "0",
+        "--workers", "4"])
+    summary = json.loads(text.strip().splitlines()[-1])
+    print(f"  cli.prebuild_cache over phase 12's crop cache: {summary} "
+          f"(exit {rc})")
+    if rc != 0 or summary["skipped_valid"] != n or summary["total"] != n:
+        bad.append(f"prebuild_cache exit {rc}: {summary}")
+    corpus_s = time.perf_counter() - t0
+    # ---- mem_report against the bytes phases 17 and 18 counted ----------------
+    t0 = time.perf_counter()
+    bc = BertConfig(**{**spec["bert_kw"], "hidden_dropout_prob": 0.0,
+                       "attention_probs_dropout_prob": 0.0})
+    state_groups = ("params/image_model", "params/text_model",
+                    "critic_params", "img_opt", "mi_opt", "txt_opt")
+    checks = []
+    for mode, kw in TP_ZERO_MODES.items():
+        cfg_z = TrainingConfig.production(
+            compute_dtype="float32", pallas_stem=True,
+            mesh_shape=(("data", TP_WORLD),),
+            zero1_optimizer_sharding=kw.get("zero1", False),
+            fsdp_parameter_sharding=kw.get("fsdp", False))
+        r = mem_report.report(cfg_z, bert_config=bc)
+        got = sum(r["groups"][g]["per_rank_bytes"] for g in state_groups)
+        checks.append((f"17 (c) {mode}", got,
+                       [rk[mode] for rk in tp["zero_bytes"]]))
+        if spec["ae"] is None and mode in tp["ae_bytes"][0]:
+            r = mem_report.report(cfg_z, trainer="ae")
+            got = sum(r["groups"][g]["per_rank_bytes"]
+                      for g in ("params", "opt_state"))
+            checks.append((f"17 (d) AE {mode}", got,
+                           [rk[mode] for rk in tp["ae_bytes"]]))
+    cfg_p = TrainingConfig.production(compute_dtype="float32",
+                                      pallas_stem=True,
+                                      pipeline_microbatches=PP_MICRO,
+                                      mesh_shape=(("pipe", PP_WORLD),))
+    r = mem_report.report(cfg_p, bert_config=bc)
+    text_groups = ("params/text_model", "txt_opt")
+    checks.append(("18 (c) a stage", sum(r["groups"][g]["per_rank_bytes"]
+                                         for g in text_groups),
+                   [res["counted"] for res in pp["resident"]]))
+    checks.append(("18 (c) one rank", sum(r["groups"][g]["global_bytes"]
+                                          for g in text_groups),
+                   [res["one_rank"] for res in pp["resident"]]))
+    mem_s = time.perf_counter() - t0
+    for name, got, counted in checks:
+        print(f"  tools.mem_report, phase {name}: {got} bytes "
+              f"({got / 2 ** 30:.4f} GiB) a rank; counted by rank "
+              + ", ".join(f"{r}: {c}" for r, c in enumerate(counted)))
+        if any(c != got for c in counted):
+            bad.append(f"mem_report {name}: {got} against {counted}")
+    if spec["ae"] is None and not any("AE" in c[0] for c in checks):
+        bad.append("mem_report: no AE bytes from phase 17 (d)")
+    seconds = time.perf_counter() - started
+    print(f"  phase 20: {seconds:.1f} s (host clock; the ETL {etl_s:.1f} s, "
+          f"phase 12's corpus {corpus_s:.1f} s, mem_report {mem_s:.1f} s)  "
+          f"[{card}]")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return {"seconds": seconds}
 
 
 class PhaseClock:
@@ -7019,10 +7547,11 @@ class PhaseClock:
 
 
 def main(only: int = 0) -> int:
-    """Every phase, or with ``only`` 17 or 18 (``python3 chip_smoke.py
-    --phase17`` / ``--phase18``, a development run that prints no result
+    """Every phase, or with ``only`` 17, 18, 19 or 20 (``python3
+    chip_smoke.py --phase17`` ..., a development run that prints no result
     lines) the build, phase 2's flash checks, phase 3's flash times and
-    that phase."""
+    that phase (20: phases 17, 18 and 20, whose check reads their
+    bytes)."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs an NVIDIA card", file=sys.stderr)
@@ -7042,18 +7571,32 @@ def main(only: int = 0) -> int:
         print(f"== phase 3: the flash kernels' times at {SERVE_SHAPE}")
         time_kernels()
         clock.done(3)
-        with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
-            if only == 17:
-                print(f"== phase 17: tensor and sequence parallelism, "
-                      f"ZeRO-1 / FSDP, worlds of {TP_WORLD} ranks on the one "
-                      f"card")
-                drive_tp(root, "cuda", backend=TP_BACKEND)
-            else:
-                print(f"== phase 18: GPipe, a world of {PP_WORLD} ranks on "
-                      f"the one card")
-                drive_pp(root, "cuda", backend=TP_BACKEND)
-        clock.done(only)
-        print(f"chip_smoke: phases 1, 2, 3 and {only} in "
+        tp = pp = None
+        if only in (17, 20):
+            print(f"== phase 17: tensor and sequence parallelism, ZeRO-1 / "
+                  f"FSDP, worlds of {TP_WORLD} ranks on the one card")
+            with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
+                tp = drive_tp(root, "cuda", backend=TP_BACKEND)
+            torch.cuda.empty_cache()
+            clock.done(17)
+        if only in (18, 20):
+            print(f"== phase 18: GPipe, a world of {PP_WORLD} ranks on the "
+                  f"one card")
+            with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
+                pp = drive_pp(root, "cuda", backend=TP_BACKEND)
+            clock.done(18)
+        if only == 19:
+            print(f"== phase 19: the serving export (full width, B={BATCH}, "
+                  f"L={SEQ}, float32)")
+            with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
+                drive_export(root, "cuda")
+            clock.done(19)
+        if only == 20:
+            print("== phase 20: the CLI and ETL rest on the card's host")
+            with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
+                drive_etl(root, "cuda", tp, pp)
+            clock.done(20)
+        print(f"chip_smoke: phases {sorted(clock.seconds)} in "
               f"{time.perf_counter() - started:.1f} s (a development run: no "
               f"result lines)")
         return 0
@@ -7169,7 +7712,22 @@ def main(only: int = 0) -> int:
           f"point from disk)")
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
         pp = drive_pp(root, "cuda", backend=world["backend"])
+    torch.cuda.empty_cache()
     clock.done(18)
+    print(f"== phase 19: the serving export (full width, B={BATCH}, L={SEQ}, "
+          f"float32: embed_images, embed_texts, classify, and embed_texts "
+          f"with the fused FFN), reloaded in a child that imports only the "
+          f"custom operators' modules")
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
+        export = drive_export(root, "cuda")
+    torch.cuda.empty_cache()
+    clock.done(19)
+    print("== phase 20: the CLI and ETL rest on the card's host "
+          "(dataset_populate, derive_buckets, corpus_check, prebuild_cache, "
+          "mem_report against phases 17 and 18)")
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as root:
+        drive_etl(root, "cuda", tp, pp)
+    clock.done(20)
 
     # each path's launches, counted from 0 just before it and read just
     # after; serving runs the flash forward, training and remat the flash
@@ -7187,7 +7745,9 @@ def main(only: int = 0) -> int:
     # flash kernels (with the stem's forward and dW where pallas_stem is
     # on), its TP layer the fused FFN kernels, phase 18's pipelined world
     # and its entry point from disk the f32 flash kernels and the stem's
-    # forward and dW, its remat world the bf16 flash kernels
+    # forward and dW, its remat world the bf16 flash kernels, phase 19's
+    # artifacts (run in its reload child) the f32 flash forward and, with
+    # the fused FFN, the f32 fused FFN forward
     flash_all = [*fa.KERNELS.values(), *fa.BWD_KERNELS.values()]
     flash_bf16 = [fa.KERNELS[torch.bfloat16], fa.BWD_KERNELS[torch.bfloat16]]
     paths = {"serving": (serve["launches"], fa.KERNELS.values()),
@@ -7235,7 +7795,12 @@ def main(only: int = 0) -> int:
              "pp_remat_world": (pp["pp_remat"], flash_bf16),
              "pp_cli": (pp["pp_cli"], [fa.KERNELS[torch.float32],
                                        fa.BWD_KERNELS[torch.float32],
-                                       sc.KERNELS["fwd"], sc.KERNELS["dw"]])}
+                                       sc.KERNELS["fwd"], sc.KERNELS["dw"]]),
+             "serving_export": (export["launches"],
+                                [fa.KERNELS[torch.float32]]),
+             "serving_export_fused_ffn": (export["ffn_launches"],
+                                          [fa.KERNELS[torch.float32],
+                                           ff.KERNELS["fwd"]])}
     for path, (counts, names) in paths.items():
         for name in names:
             if counts.get(name, 0) == 0:
@@ -7296,5 +7861,6 @@ def main(only: int = 0) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--world-worker"]:
         sys.exit(world_worker(*sys.argv[2:]))
-    sys.exit(main(only={"--phase17": 17, "--phase18": 18}.get(
+    sys.exit(main(only={"--phase17": 17, "--phase18": 18, "--phase19": 19,
+                        "--phase20": 20}.get(
         (sys.argv[1:2] or [""])[0], 0)))

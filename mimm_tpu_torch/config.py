@@ -1,9 +1,10 @@
 """Configuration the port shares with the JAX package (copied, not
-imported): the classifier architecture, ``TrainingConfig`` with the fields
-the MI trainer reads, the ``production()`` / ``parity()`` presets
-(mimm_tpu/config.py:79-373), ``PRODUCTION_SEQ_BUCKETS`` and the command
-line, ``construct_training_parameters`` (:397-441).  The other fields of
-the JAX config come with the slices that read them."""
+imported): ``DatasetConfig`` and its command line
+``construct_dataset_parameters`` (mimm_tpu/config.py:29-53, 443-448), the
+classifier architecture, ``TrainingConfig`` with the fields the trainers
+read, the ``production()`` / ``parity()`` presets (:79-373),
+``PRODUCTION_SEQ_BUCKETS`` and the command line,
+``construct_training_parameters`` (:397-441)."""
 
 from __future__ import annotations
 
@@ -26,6 +27,36 @@ PRODUCTION_SEQ_BUCKETS = (64, 96, 128, 160, 192, 256, 320)
 
 def _default(path: str) -> str:
     return os.path.join(_REPO_DIR, path)
+
+
+@dataclass(frozen=True)
+class DatasetConfig:
+    """Dataset download / population flags (reference helpers.py:7-82),
+    read by data/etl.py and cli/dataset_populate.py."""
+
+    download_user: str = "user"
+    download_password: str = "..."
+    total_amount: int = 1_000_000
+    amount_for_training: int = 9_000
+    amount_for_testing: int = 1_000
+
+    data_dir: str = _default("full_data_set/")
+    image_storage_dir: str = _default("full_data_set/images/")
+    text_storage_dir: str = _default("full_data_set/text/")
+
+    training_data_dir: str = _default("training_data/")
+    training_image_dir: str = _default("training_data/images/")
+    training_text_dir: str = _default("training_data/text/")
+    training_dataset_labeldata: str = _default(
+        "training_data/training_label_negbio.csv")
+
+    testing_data_dir: str = _default("testing_data/")
+    testing_image_dir: str = _default("testing_data/images/")
+    testing_text_dir: str = _default("testing_data/text/")
+    testing_dataset_labeldata: str = _default(
+        "testing_data/testing_label_negbio.csv")
+
+    sub_folder: str = "p10"
 
 
 @dataclass(frozen=True)
@@ -222,3 +253,13 @@ def construct_training_parameters(
     base = {"production": TrainingConfig.production,
             "parity": TrainingConfig.parity}.get(preset, TrainingConfig)()
     return base.replace(**ns)
+
+
+def construct_dataset_parameters(argv: Optional[Sequence[str]] = None
+                                 ) -> DatasetConfig:
+    """The reference's dataset flags (helpers.py:7-82): one per field of
+    ``DatasetConfig``, each overriding its default."""
+    parser = argparse.ArgumentParser()
+    _add_fields(parser, DatasetConfig())
+    return dataclasses.replace(DatasetConfig(),
+                               **vars(parser.parse_args(argv)))

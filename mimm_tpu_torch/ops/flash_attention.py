@@ -9,6 +9,11 @@ backward ``csrc/flash_attention_bwd.cu``; for CPU tensors the forward is
 ``flash_attention_plain``, the same function in plain PyTorch with the same
 dtype steps, and the backward is autograd through it.  There is no fallback
 from CUDA to the plain version: a CUDA call launches the kernel or raises.
+The forward is the operator ``mimm_tpu_torch::flash_attention_fwd``
+(``torch.library.custom_op``: the kernel for CUDA tensors, the plain
+version for CPU tensors, a fake that allocates for tracers), so that
+``torch.export`` records one node where the kernel runs
+(tools/export_serving.py); the backward stays in the autograd Function.
 
 Dropout on the probabilities (``rate > 0``) keeps element (b, h, i, j) by a
 Philox4x32-10 draw keyed on the seed (ops/philox.py), the same bits in both
@@ -211,17 +216,44 @@ def flash_attention_bwd(q, k, v, bias, seed, rate, do, head_offset: int = 0,
                                      head_offset, heads_total)
 
 
+# the forward as a registered operator, so that torch.export and other
+# tracers see one node where the kernel runs (tools/export_serving.py):
+# the kernel for CUDA tensors, the plain version for CPU tensors, and for
+# tracing a fake that only allocates (it launches and counts nothing)
+@torch.library.custom_op(
+    "mimm_tpu_torch::flash_attention_fwd", mutates_args=(),
+    device_types="cuda",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor bias, Tensor? seed, "
+           "float rate, int head_offset, int heads_total) -> Tensor")
+def flash_attention_fwd(q, k, v, bias, seed, rate, head_offset, heads_total):
+    return _forward_kernel(q, k, v, bias, seed, rate, head_offset,
+                           heads_total)
+
+
+@flash_attention_fwd.register_kernel("cpu")
+def _flash_attention_fwd_cpu(q, k, v, bias, seed, rate, head_offset,
+                             heads_total):
+    return flash_attention_plain(q, k, v, bias, seed, rate, head_offset,
+                                 heads_total)
+
+
+@flash_attention_fwd.register_fake
+def _flash_attention_fwd_fake(q, k, v, bias, seed, rate, head_offset,
+                              heads_total):
+    return torch.empty_like(q)
+
+
 class _FlashAttention(torch.autograd.Function):
+    """The operator's forward with the backward kernel (or the plain
+    autograd on the CPU) as its gradient."""
+
     @staticmethod
     def forward(ctx, q, k, v, bias, seed, rate, head_offset, heads_total):
         ctx.save_for_backward(q, k, v, bias, seed)
         ctx.rate = rate
         ctx.heads = (head_offset, heads_total)
-        if q.device.type == "cuda":
-            return _forward_kernel(q, k, v, bias, seed, rate, head_offset,
+        return flash_attention_fwd(q, k, v, bias, seed, rate, head_offset,
                                    heads_total)
-        return flash_attention_plain(q, k, v, bias, seed, rate, head_offset,
-                                     heads_total)
 
     @staticmethod
     def backward(ctx, do):
@@ -248,5 +280,5 @@ def flash_attention(q, k, v, bias, seed=None, rate: float = 0.0,
     _check(q, k, v, bias, seed, rate, head_offset, heads_total)
     return _FlashAttention.apply(q, k, v, bias, seed, float(rate),
                                  int(head_offset),
-                                 None if heads_total is None
+                                 q.shape[1] if heads_total is None
                                  else int(heads_total))

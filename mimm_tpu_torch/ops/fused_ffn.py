@@ -16,7 +16,11 @@ function in plain PyTorch with the kernels' casts: every product sums in
 float32, the forward applies the GELU to the float32 h before rounding it,
 the backward sees h as saved, g is rounded to the compute dtype before
 ``g·w2`` and dh before ``dh·w1ᵀ``.  There is no fallback from CUDA to the
-plain versions: a CUDA call launches the kernels or raises.
+plain versions: a CUDA call launches the kernels or raises.  The forward
+is the operator ``mimm_tpu_torch::fused_ffn_fwd`` (``torch.library
+.custom_op``, as the flash forward's), which ``torch.export`` records as
+one node (tools/export_serving.py); the backward stays in the autograd
+Function.
 
 The kernels read the weights where ``torch.nn.Linear`` keeps them, (out,
 in) row-major: a ``w1`` that is the transposed view of a contiguous (f, d)
@@ -250,16 +254,39 @@ def bwd_b2_kernel(dy, h):
     return dw2.t()
 
 
+# row 8 as a registered operator, so that torch.export and other tracers
+# see one node where the kernel runs (tools/export_serving.py): the kernel
+# for CUDA tensors, the plain version for CPU tensors, and for tracing a
+# fake that allocates what the kernel's wrapper does (and counts nothing)
+@torch.library.custom_op(
+    "mimm_tpu_torch::fused_ffn_fwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2) "
+           "-> (Tensor, Tensor)")
+def fused_ffn_fwd(x, w1, b1, w2, b2):
+    return fwd_kernel(x, w1, b1, w2, b2)
+
+
+@fused_ffn_fwd.register_kernel("cpu")
+def _fused_ffn_fwd_cpu(x, w1, b1, w2, b2):
+    return fwd_plain(x, w1, b1, w2, b2)
+
+
+@fused_ffn_fwd.register_fake
+def _fused_ffn_fwd_fake(x, w1, b1, w2, b2):
+    (t, d), f = x.shape, w1.shape[1]
+    return x.new_empty(t, d), x.new_empty(t, f)
+
+
 def fwd(x, w1, b1, w2, b2):
-    """Row 8: (y (T, d), h (T, f)) in x's dtype; the kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    """Row 8: (y (T, d), h (T, f)) in x's dtype, through the operator
+    ``mimm_tpu_torch::fused_ffn_fwd``."""
     (t, d), f = x.shape, w1.shape[1]
     _check((x, w1, b1, w2, b2), t, d, f)
     if (tuple(w1.shape), tuple(b1.shape), tuple(w2.shape), tuple(b2.shape)) \
             != ((d, f), (f,), (f, d), (d,)):
         raise ValueError(f"x (T, d), w1 (d, f), b1 (f,), w2 (f, d), b2 (d,); "
                          f"got {[tuple(a.shape) for a in (x, w1, b1, w2, b2)]}")
-    return (fwd_kernel if x.is_cuda else fwd_plain)(x, w1, b1, w2, b2)
+    return fused_ffn_fwd(x, w1, b1, w2, b2)
 
 
 def bwd_a(dy, h, w1, w2):

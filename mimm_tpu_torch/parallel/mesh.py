@@ -1066,6 +1066,36 @@ def _local_shapes(full: dict, tp: Optional[dict], mesh: Mesh) -> dict:
     return out
 
 
+def mi_state_layouts(mesh: Optional[Mesh], state, zero1: bool = False,
+                     fsdp: bool = False) -> Optional[Dict[str, GroupLayout]]:
+    """The placement ``shard_mi_state`` gives an MI train state (its
+    tensors may lie on the meta device: only shapes are read): a
+    ``GroupLayout`` for "image_model", "text_model" and "critic", or None
+    where everything stays replicated."""
+    from mimm_tpu_torch.train.mi import critic_dict
+
+    zero1 = zero1 and mesh_size(mesh) > 1
+    fsdp = fsdp and mesh_size(mesh) > 1
+    if mesh is None or not (mesh.tp or zero1 or fsdp or mesh.pipe > 1):
+        return None
+    img = dict(state.model.image_model.named_parameters())
+    critic = critic_dict(state.critic_params)
+    ctp = critic_tp_shardings(mesh, state.critic_params)
+    ctp = {f"{i}.{k}": d for i, layer in enumerate(ctp)
+           for k, d in layer.items()} if mesh.tp else None
+    critic_local = _local_shapes(critic, ctp, mesh)
+    return {
+        "image_model": GroupLayout(
+            zero=zero1_shardings(mesh, img) if zero1 else None,
+            fsdp=zero1_shardings(mesh, img) if fsdp else None),
+        "text_model": _text_layout(state, mesh, zero1, fsdp),
+        "critic": GroupLayout(
+            tp=ctp,
+            zero=zero1_shardings(mesh, critic_local) if zero1 else None,
+            fsdp=zero1_shardings(mesh, critic_local)
+            if fsdp and not mesh.tp else None)}
+
+
 def shard_mi_state(mesh: Optional[Mesh], state, zero1: bool = False,
                    fsdp: bool = False, sequence_parallel: bool = False):
     """Place an MI train state on the mesh (JAX's ``shard_mi_state`` /
@@ -1087,30 +1117,13 @@ def shard_mi_state(mesh: Optional[Mesh], state, zero1: bool = False,
     pipeline.py runs it).  Sets ``state.layout``; returns the state."""
     from mimm_tpu_torch.models.bert import (set_sequence_parallel,
                                             set_tensor_parallel)
-    from mimm_tpu_torch.train.mi import critic_dict
 
     replicate(mesh, [state.model, state.critic_params])
     _replicate_opt(mesh, [state.img_opt, state.mi_opt, state.txt_opt])
-    zero1 = zero1 and mesh_size(mesh) > 1
-    fsdp = fsdp and mesh_size(mesh) > 1
-    if mesh is None or not (mesh.tp or zero1 or fsdp or mesh.pipe > 1):
+    layouts = mi_state_layouts(mesh, state, zero1, fsdp)
+    if layouts is None:
         return state
     img = dict(state.model.image_model.named_parameters())
-    critic = critic_dict(state.critic_params)
-    ctp = critic_tp_shardings(mesh, state.critic_params)
-    ctp = {f"{i}.{k}": d for i, layer in enumerate(ctp)
-           for k, d in layer.items()} if mesh.tp else None
-    critic_local = _local_shapes(critic, ctp, mesh)
-    layouts = {
-        "image_model": GroupLayout(
-            zero=zero1_shardings(mesh, img) if zero1 else None,
-            fsdp=zero1_shardings(mesh, img) if fsdp else None),
-        "text_model": _text_layout(state, mesh, zero1, fsdp),
-        "critic": GroupLayout(
-            tp=ctp,
-            zero=zero1_shardings(mesh, critic_local) if zero1 else None,
-            fsdp=zero1_shardings(mesh, critic_local)
-            if fsdp and not mesh.tp else None)}
     state.img_opt = place_group(img, state.img_opt, layouts["image_model"],
                                 mesh)
     state.txt_opt = place_group(
@@ -1135,6 +1148,17 @@ def _replicate_opt(mesh: Optional[Mesh], opt_states: list) -> None:
         _map_moments(st, lambda m: replicate(mesh, m))
 
 
+def ae_state_layout(mesh: Optional[Mesh], state, zero1: bool = False,
+                    fsdp: bool = False) -> Optional[GroupLayout]:
+    """The placement ``shard_ae_state`` gives an AE train state's model
+    (shapes only), or None where everything stays replicated."""
+    if mesh is None or mesh.data == 1 or not (zero1 or fsdp):
+        return None
+    params = dict(state.model.named_parameters())
+    return GroupLayout(zero=zero1_shardings(mesh, params) if zero1 else None,
+                       fsdp=zero1_shardings(mesh, params) if fsdp else None)
+
+
 def shard_ae_state(mesh: Optional[Mesh], state, zero1: bool = False,
                    fsdp: bool = False):
     """Place an AE train state (train/ae.py): rank 0's weights broadcast
@@ -1143,11 +1167,10 @@ def shard_ae_state(mesh: Optional[Mesh], state, zero1: bool = False,
     ZeRO ladder).  Sets ``state.layout``; returns the state."""
     replicate(mesh, state.model)
     _replicate_opt(mesh, [state.opt_state])
-    if mesh is None or mesh.data == 1 or not (zero1 or fsdp):
+    layout = ae_state_layout(mesh, state, zero1, fsdp)
+    if layout is None:
         return state
     params = dict(state.model.named_parameters())
-    layout = GroupLayout(zero=zero1_shardings(mesh, params) if zero1 else None,
-                         fsdp=zero1_shardings(mesh, params) if fsdp else None)
     state.opt_state = place_group(params, state.opt_state, layout, mesh)
     state.layout = StateLayout(mesh, {"model": layout})
     return state
