@@ -8,10 +8,15 @@ Gates (CPU, several processes; none needs the card):
               the sharded save and restore) and its data lane against
               JAX's unsharded step.  It takes seconds, so tier-1 runs it
               too: no variable opts it in.
+  prodshape   tests/test_torch_prodshape_parity.py with
+              MIMM_RUN_TORCH_PRODSHAPE=1: BERT-base's 40 float32 MI steps
+              inside the torch oracle's rounding band.
+  mesh        tests/test_torch_prodshape_mesh.py with
+              MIMM_RUN_TORCH_PRODSHAPE_MESH=1: JAX's three mesh lanes at
+              BERT-base width, 8 gloo ranks, against one rank.
+  Tier-1 runs the narrow case of both files without the variable.
 
-The JAX package's prodshape and mesh gates have no port test yet.
-
-    python -m mimm_tpu_torch.tools.run_gates [--only multihost]
+    python -m mimm_tpu_torch.tools.run_gates [--only multihost|prodshape|mesh]
 """
 
 import argparse
@@ -28,7 +33,28 @@ from mimm_tpu_torch.tools.mm_vs_um_seeds import OUT_DIR, PACKAGE_PARENT
 # runs anyway, the test file)
 GATES = {
     "multihost": (None, "tests/test_torch_multihost_smoke.py"),
+    "prodshape": ("MIMM_RUN_TORCH_PRODSHAPE",
+                  "tests/test_torch_prodshape_parity.py"),
+    "mesh": ("MIMM_RUN_TORCH_PRODSHAPE_MESH",
+             "tests/test_torch_prodshape_mesh.py"),
 }
+
+
+def figures(out: str) -> list:
+    """The JSON objects a gate's tests printed (one a line, after any
+    progress dots pytest wrote on the same line)."""
+    found = []
+    for line in out.splitlines():
+        start = line.find("{")
+        if start < 0:
+            continue
+        try:
+            obj = json.loads(line[start:])
+        except ValueError:
+            continue
+        if isinstance(obj, dict):
+            found.append(obj)
+    return found
 
 
 def run_gate(name, env_var, test_file, timeout):
@@ -36,7 +62,7 @@ def run_gate(name, env_var, test_file, timeout):
     t0 = time.time()
     try:
         proc = subprocess.run(
-            [sys.executable, "-m", "pytest", test_file, "-x", "-q"],
+            [sys.executable, "-m", "pytest", test_file, "-x", "-q", "-s"],
             cwd=PACKAGE_PARENT, env=env, capture_output=True, text=True,
             timeout=timeout)
         rc, out = proc.returncode, proc.stdout
@@ -50,6 +76,7 @@ def run_gate(name, env_var, test_file, timeout):
         "date": datetime.datetime.now().strftime("%Y-%m-%d %H:%M"),
         "passed": rc == 0, "returncode": rc,
         "wall_seconds": round(wall, 1), "pytest_tail": tail,
+        "figures": figures(out),
     }
     print(json.dumps(rec))
     return rec
